@@ -12,15 +12,16 @@
 3. Holds each kernel against its plain PyTorch version on the card at edge
    shapes (each path's boundaries, ragged and misaligned inputs) and checks
    that slot_sums' float64 sums repeat bit for bit.
-4. Generates the six TPC-H tables Q3 and Q5 read (orders, lineitem,
-   customer, supplier, nation, region) with the port's load_tpch(seed=1).
+4. Generates the eight TPC-H tables with the port's load_tpch(seed=1).
 5. Runs Q1, Q6 and an l_suppkey GROUP BY through Session on cuda, then
-   ANALYZEs the six tables (as bench.py does before measuring; the join
-   order reads the statistics) and runs TPC-H Q3 and Q5: each query cold
-   once and warm three times, each result checked against the numpy
-   oracles of tidb_tpu_torch/bench/oracles.py. Shows that every kernel
-   launched: kernel launch counts are zeroed just before these runs and
-   read just after them.
+   ANALYZEs the eight tables (as bench.py does before measuring; the join
+   order reads the statistics) and runs TPC-H Q3 and Q5, then the other
+   18 TPC-H queries (oracles.TPCH_QUERIES, at the specification's
+   substitution values for SF10): each query cold once and warm three
+   times, each result checked against the numpy oracles of
+   tidb_tpu_torch/bench/oracles.py. Shows that every kernel launched:
+   kernel launch counts are zeroed just before these runs and read just
+   after them.
 6. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs the main path gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
@@ -61,8 +62,12 @@ HBM_BYTES_PER_S = 3.35e12
 #: the highest published rate of the scalar adds these kernels do (int64
 #: and float64 adds run no faster)
 SCALAR_OPS_PER_S = 67e12
-#: the TPC-H tables the main path reads (Q3 and Q5 need all six)
-TABLES = ["orders", "lineitem", "customer", "supplier", "nation", "region"]
+#: the TPC-H tables the main path reads
+TABLES = ["orders", "lineitem", "customer", "supplier", "nation", "region", "part", "partsupp"]
+#: the table whose rows a query's rows/s counts: lineitem, unless the
+#: query does not read it
+BASE_TABLE = {"q2": "partsupp", "q11": "partsupp", "q13": "orders", "q16": "partsupp",
+              "q22": "customer"}
 #: float64 slot sums: summation order differs from the plain version, so
 #: each slot may differ by this fraction of the sum of |values| in it (far
 #: above the expected rounding, far below one lost or misplaced row)
@@ -330,6 +335,23 @@ def check_q5(res, cat):
     assert [tuple(r) for r in res.rows] == want, (res.rows, want)
 
 
+def oracle_check(cat, q, params):
+    """A check of a TPCH_QUERIES result against its oracle, computed on
+    first use and kept for the query's later runs."""
+    from tidb_tpu_torch.bench.oracles import check_rows
+
+    want = []
+
+    def check(res):
+        if not want:
+            t0 = time.perf_counter()
+            want.append(q.oracle(cat, **params))
+            log(f"  oracle: {len(want[0])} rows in {time.perf_counter() - t0:.1f}s")
+        check_rows(res.rows, want[0], q.order, q.limit)
+
+    return check
+
+
 def profile_query(sess, name, sql, out_dir) -> None:
     """Device time by kernel over one warm run, the device's busy share of
     the run's wall time, and the port's kernels launched in it beside its
@@ -477,7 +499,9 @@ def main() -> int:
         return 2
     from tidb_tpu_torch import _build
     from tidb_tpu_torch.bench import load_tpch
-    from tidb_tpu_torch.bench.oracles import Q1_SQL, Q3_SQL, Q5_SQL, Q6_SQL, SUPPKEY_SQL
+    from tidb_tpu_torch.bench.oracles import (
+        Q1_SQL, Q3_SQL, Q5_SQL, Q6_SQL, SUPPKEY_SQL, TPCH_QUERIES, spec_params,
+    )
     from tidb_tpu_torch.chunk import TRANSFERS, reset_transfers
     from tidb_tpu_torch.executor import aggregate as A
     from tidb_tpu_torch.executor import kernels as K
@@ -515,7 +539,6 @@ def main() -> int:
         "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
         "l_extendedprice", "l_discount", "l_tax", "l_suppkey",
     ])
-    nrows = li.nrows
     log(f"datagen: SF{SF:g}, " + ", ".join(
         f"{t} {cat.table('tpch', t).nrows}" for t in TABLES
     ) + f" rows in {time.perf_counter() - t0:.1f}s")
@@ -541,6 +564,9 @@ def main() -> int:
                ("l_suppkey", SUPPKEY_SQL, lambda r: check_suppkey(r, blk)),
                ("q3", Q3_SQL, lambda r: check_q3(r, cat)),
                ("q5", Q5_SQL, lambda r: check_q5(r, cat))]
+    for name, q in TPCH_QUERIES.items():
+        params = spec_params(name, SF)
+        queries.append((name, q.sql.format(**params), oracle_check(cat, q, params)))
     K.reset_launches()
     reset_transfers()
     report = {}
@@ -571,7 +597,9 @@ def main() -> int:
             "rows": len(res.rows),
             "cold_s": cold,
             "warm_s": warm,
-            "rows_per_s": nrows / float(np.median(warm)),
+            "rows_per_s": cat.table("tpch", BASE_TABLE.get(name, "lineitem")).nrows
+            / float(np.median(warm)),
+            "rows_of": BASE_TABLE.get(name, "lineitem"),
             # the peak includes what was resident before the query: cached
             # columns of earlier queries and the kernel inputs kept for phase 6
             "max_memory_allocated": torch.cuda.max_memory_allocated(),

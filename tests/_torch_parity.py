@@ -1,8 +1,7 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: carry the JAX
 package's tables across to the port as numpy arrays and compare rows."""
 
-import math
-
+from tidb_tpu_torch.bench.oracles import same_value
 from tidb_tpu_torch.storage import catalog_from_numpy
 
 
@@ -29,15 +28,6 @@ def export_tables(cat, db, names):
 
 def port_catalog(cat, db, names):
     return catalog_from_numpy(export_tables(cat, db, names))
-
-
-def same_value(a, b, rel=1e-12):
-    """Exact equality, except floats within `rel` relative."""
-    if isinstance(a, float) and isinstance(b, float):
-        if math.isnan(a) or math.isnan(b):
-            return math.isnan(a) and math.isnan(b)
-        return a == b or abs(a - b) <= rel * max(abs(a), abs(b))
-    return a == b and type(a) is type(b)
 
 
 def same_rows(got, want, ordered, rel=1e-12):

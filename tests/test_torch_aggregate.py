@@ -154,3 +154,33 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         TP._require_binary_collation(ci)
     TP._require_binary_collation(ColumnRef(type=SQLType(Kind.STRING), name="g_str"))
+
+
+@pytest.mark.parametrize("slots", [16, 300])
+def test_rows_outside_the_table_spread_over_overflow_entries(slots):
+    """Rows outside the slot table go to _OVERFLOW_SPREAD entries past it
+    (one address would serialize a card's atomics), and the table's sums,
+    extremes and occupancy are those of the rows inside it."""
+    rng = np.random.default_rng(3)
+    n = 5000
+    seg = torch.from_numpy(rng.integers(-3, slots + 40, n).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int64))
+    contrib = torch.from_numpy(rng.random(n) < 0.7)
+    ids = TA._overflow_slot(seg, slots)
+    inside = (seg >= 0) & (seg < slots)
+    assert torch.equal(ids[inside], seg[inside].to(torch.int64))
+    out = ids[~inside]
+    assert bool(((out >= slots) & (out < slots + TA._OVERFLOW_SPREAD)).all())
+    # by row position: one entry per position modulo the spread
+    pos = np.flatnonzero(~inside.numpy()) % TA._OVERFLOW_SPREAD
+    assert torch.equal(out, torch.from_numpy(slots + pos))
+    keep = (inside & contrib).numpy()
+    want = np.zeros(slots, dtype=np.int64)
+    np.add.at(want, seg.numpy()[keep], vals.numpy()[keep])
+    (got,) = TA._segment_sums([(vals, contrib)], seg, slots)
+    assert got.tolist() == want.tolist()
+    big = np.full(slots, np.iinfo(np.int64).min)
+    np.maximum.at(big, seg.numpy()[keep], vals.numpy()[keep])
+    ident = torch.iinfo(torch.int64).min
+    got = TA._segment_extreme("max", vals, contrib, ident, seg, slots)
+    assert got.tolist() == big.tolist()

@@ -1,14 +1,22 @@
 """Plain numpy answers to the port's queries over the raw columns of
 ``load_tpch`` data: the port's copies of ``numpy_q1``/``numpy_q6``/
 ``numpy_q5`` from the repo's bench.py, a ``np.bincount`` oracle for the
-l_suppkey aggregation and a vectorized ``numpy_q3``. They check results
-where no JAX is installed.
+l_suppkey aggregation, a vectorized ``numpy_q3``, and ``TPCH_QUERIES``:
+the other 18 TPC-H queries of tests/test_tpch_sql.py, each with its SQL
+text and a vectorized oracle, checked by ``check_rows``. They check
+results where no JAX is installed. String predicates are evaluated on
+each dictionary with plain ``str`` methods, independent of the engine's
+LIKE.
 
 Columns are the physical encodings: dates as epoch days, decimals as
 scaled int64, strings as dictionary codes.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -206,3 +214,823 @@ def numpy_q5(cat, d0: int = Q5_D0, d1: int = Q5_D1):
     m = ord_ok[lo] & (cn == sn) & nat_in[np.clip(sn, 0, n_nat - 1)]
     rev = li["l_extendedprice"].data[m] * (100 - li["l_discount"].data[m])
     return np.bincount(sn[m], rev, minlength=n_nat)
+
+
+# ---------------------------------------------------------------------------
+# the rest of TPC-H: the text of tests/test_tpch_sql.py, with the
+# substitution parameters that file scales down for sf 0.002 as
+# placeholders (Q11's fraction, Q18's quantity)
+# ---------------------------------------------------------------------------
+
+Q2_SQL = (
+    "select s_acctbal, s_name, n_name, p_partkey, p_mfgr "
+    "from part, supplier, partsupp, nation, region "
+    "where p_partkey = ps_partkey and s_suppkey = ps_suppkey "
+    "and p_size = 15 and p_type like '%BRASS' "
+    "and s_nationkey = n_nationkey and n_regionkey = r_regionkey "
+    "and r_name = 'EUROPE' "
+    "and ps_supplycost = (select min(ps_supplycost) from partsupp, supplier, "
+    "nation, region where p_partkey = ps_partkey and s_suppkey = ps_suppkey "
+    "and s_nationkey = n_nationkey and n_regionkey = r_regionkey "
+    "and r_name = 'EUROPE') "
+    "order by s_acctbal desc, n_name, s_name, p_partkey limit 100"
+)
+Q4_SQL = (
+    "select o_orderpriority, count(*) as order_count from orders "
+    "where o_orderdate >= date '1993-07-01' "
+    "and o_orderdate < date '1993-10-01' "
+    "and exists (select * from lineitem where l_orderkey = o_orderkey "
+    "and l_commitdate < l_receiptdate) "
+    "group by o_orderpriority order by o_orderpriority"
+)
+Q7_SQL = (
+    "select supp_nation, cust_nation, l_year, sum(volume) as revenue "
+    "from (select n1.n_name as supp_nation, n2.n_name as cust_nation, "
+    "extract(year from l_shipdate) as l_year, "
+    "l_extendedprice * (1 - l_discount) as volume "
+    "from supplier, lineitem, orders, customer, nation n1, nation n2 "
+    "where s_suppkey = l_suppkey and o_orderkey = l_orderkey "
+    "and c_custkey = o_custkey and s_nationkey = n1.n_nationkey "
+    "and c_nationkey = n2.n_nationkey "
+    "and ((n1.n_name = 'FRANCE' and n2.n_name = 'GERMANY') "
+    "or (n1.n_name = 'GERMANY' and n2.n_name = 'FRANCE')) "
+    "and l_shipdate between date '1995-01-01' and date '1996-12-31'"
+    ") as shipping "
+    "group by supp_nation, cust_nation, l_year "
+    "order by supp_nation, cust_nation, l_year"
+)
+Q8_SQL = (
+    "select o_year, sum(case when nation = 'BRAZIL' then volume else 0 end) "
+    "/ sum(volume) as mkt_share "
+    "from (select extract(year from o_orderdate) as o_year, "
+    "l_extendedprice * (1 - l_discount) as volume, n2.n_name as nation "
+    "from part, supplier, lineitem, orders, customer, nation n1, nation n2, region "
+    "where p_partkey = l_partkey and s_suppkey = l_suppkey "
+    "and l_orderkey = o_orderkey and o_custkey = c_custkey "
+    "and c_nationkey = n1.n_nationkey and n1.n_regionkey = r_regionkey "
+    "and r_name = 'AMERICA' and s_nationkey = n2.n_nationkey "
+    "and o_orderdate between date '1995-01-01' and date '1996-12-31' "
+    "and p_type = 'ECONOMY ANODIZED STEEL') as all_nations "
+    "group by o_year order by o_year"
+)
+Q9_SQL = (
+    "select nation, o_year, sum(amount) as sum_profit "
+    "from (select n_name as nation, "
+    "extract(year from o_orderdate) as o_year, "
+    "l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount "
+    "from part, supplier, lineitem, partsupp, orders, nation "
+    "where s_suppkey = l_suppkey and ps_suppkey = l_suppkey "
+    "and ps_partkey = l_partkey and p_partkey = l_partkey "
+    "and o_orderkey = l_orderkey and s_nationkey = n_nationkey "
+    "and p_name like '%green%') as profit "
+    "group by nation, o_year order by nation, o_year desc"
+)
+Q10_SQL = (
+    "select c_custkey, c_name, "
+    "sum(l_extendedprice * (1 - l_discount)) as revenue, c_acctbal, "
+    "n_name, c_address, c_phone, c_comment "
+    "from customer, orders, lineitem, nation "
+    "where c_custkey = o_custkey and l_orderkey = o_orderkey "
+    "and o_orderdate >= date '1993-10-01' "
+    "and o_orderdate < date '1994-01-01' "
+    "and l_returnflag = 'R' and c_nationkey = n_nationkey "
+    "group by c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment "
+    "order by revenue desc, c_custkey limit 20"
+)
+Q11_SQL = (
+    "select ps_partkey, sum(ps_supplycost * ps_availqty) as value "
+    "from partsupp, supplier, nation "
+    "where ps_suppkey = s_suppkey and s_nationkey = n_nationkey "
+    "and n_name = 'GERMANY' "
+    "group by ps_partkey having "
+    "sum(ps_supplycost * ps_availqty) > ("
+    "select sum(ps_supplycost * ps_availqty) * {fraction} "
+    "from partsupp, supplier, nation "
+    "where ps_suppkey = s_suppkey and s_nationkey = n_nationkey "
+    "and n_name = 'GERMANY') "
+    "order by value desc, ps_partkey"
+)
+Q12_SQL = (
+    "select l_shipmode, "
+    "sum(case when o_orderpriority = '1-URGENT' or o_orderpriority = '2-HIGH' "
+    "then 1 else 0 end) as high_line_count, "
+    "sum(case when o_orderpriority <> '1-URGENT' and o_orderpriority <> '2-HIGH' "
+    "then 1 else 0 end) as low_line_count "
+    "from orders, lineitem where o_orderkey = l_orderkey "
+    "and l_shipmode in ('MAIL', 'SHIP') "
+    "and l_commitdate < l_receiptdate and l_shipdate < l_commitdate "
+    "and l_receiptdate >= date '1994-01-01' and l_receiptdate < date '1995-01-01' "
+    "group by l_shipmode order by l_shipmode"
+)
+Q13_SQL = (
+    "select c_count, count(*) as custdist from "
+    "(select c_custkey, count(o_orderkey) as c_count "
+    "from customer left outer join orders on "
+    "c_custkey = o_custkey and o_comment not like '%special%requests%' "
+    "group by c_custkey) as c_orders "
+    "group by c_count order by custdist desc, c_count desc"
+)
+Q14_SQL = (
+    "select 100.00 * sum(case when p_type like 'PROMO%' "
+    "then l_extendedprice * (1 - l_discount) else 0 end) "
+    "/ sum(l_extendedprice * (1 - l_discount)) as promo_revenue "
+    "from lineitem, part where l_partkey = p_partkey "
+    "and l_shipdate >= date '1995-09-01' and l_shipdate < date '1995-10-01'"
+)
+Q15_SQL = (
+    "with revenue as (select l_suppkey as supplier_no, "
+    "sum(l_extendedprice * (1 - l_discount)) as total_revenue "
+    "from lineitem where l_shipdate >= date '1996-01-01' "
+    "and l_shipdate < date '1996-04-01' group by l_suppkey) "
+    "select s_suppkey, s_name, total_revenue "
+    "from supplier, revenue where s_suppkey = supplier_no "
+    "and total_revenue = (select max(total_revenue) from revenue) "
+    "order by s_suppkey"
+)
+Q16_SQL = (
+    "select p_brand, p_type, p_size, count(distinct ps_suppkey) as supplier_cnt "
+    "from partsupp, part where p_partkey = ps_partkey "
+    "and p_brand <> 'Brand#45' and p_type not like 'MEDIUM POLISHED%' "
+    "and p_size in (49, 14, 23, 45, 19, 3, 36, 9) "
+    "and ps_suppkey not in (select s_suppkey from supplier where "
+    "s_comment like '%Customer%Complaints%') "
+    "group by p_brand, p_type, p_size "
+    "order by supplier_cnt desc, p_brand, p_type, p_size"
+)
+Q17_SQL = (
+    "select sum(l_extendedprice) / 7.0 as avg_yearly "
+    "from lineitem, part "
+    "where p_partkey = l_partkey and p_brand = 'Brand#23' "
+    "and p_container = 'MED BAG' "
+    "and l_quantity < (select 0.2 * avg(l_quantity) from lineitem "
+    "where l_partkey = p_partkey)"
+)
+Q18_SQL = (
+    "select c_custkey, o_orderkey, o_orderdate, o_totalprice, sum(l_quantity) "
+    "from customer, orders, lineitem "
+    "where o_orderkey in (select l_orderkey from lineitem group by l_orderkey "
+    "having sum(l_quantity) > {quantity}) "
+    "and c_custkey = o_custkey and o_orderkey = l_orderkey "
+    "group by c_custkey, o_orderkey, o_orderdate, o_totalprice "
+    "order by o_totalprice desc, o_orderdate limit 100"
+)
+Q19_SQL = (
+    "select sum(l_extendedprice * (1 - l_discount)) as revenue "
+    "from lineitem, part where "
+    "(p_partkey = l_partkey and p_brand = 'Brand#12' "
+    "and p_container in ('SM CASE', 'SM BOX', 'SM PACK') "
+    "and l_quantity >= 1 and l_quantity <= 11 "
+    "and p_size between 1 and 5 "
+    "and l_shipmode in ('AIR', 'REG AIR') "
+    "and l_shipinstruct = 'DELIVER IN PERSON') "
+    "or (p_partkey = l_partkey and p_brand = 'Brand#23' "
+    "and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK') "
+    "and l_quantity >= 10 and l_quantity <= 20 "
+    "and p_size between 1 and 10 "
+    "and l_shipmode in ('AIR', 'REG AIR') "
+    "and l_shipinstruct = 'DELIVER IN PERSON') "
+    "or (p_partkey = l_partkey and p_brand = 'Brand#34' "
+    "and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG') "
+    "and l_quantity >= 20 and l_quantity <= 30 "
+    "and p_size between 1 and 15 "
+    "and l_shipmode in ('AIR', 'REG AIR') "
+    "and l_shipinstruct = 'DELIVER IN PERSON')"
+)
+Q20_SQL = (
+    "select s_name, s_address from supplier, nation "
+    "where s_suppkey in (select ps_suppkey from partsupp where "
+    "ps_partkey in (select p_partkey from part where p_name like 'forest%') "
+    "and ps_availqty > (select 0.5 * sum(l_quantity) from lineitem "
+    "where l_partkey = ps_partkey and l_suppkey = ps_suppkey "
+    "and l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01')) "
+    "and s_nationkey = n_nationkey and n_name = 'CANADA' "
+    "order by s_name"
+)
+Q21_SQL = (
+    "select s_suppkey, count(*) as numwait "
+    "from supplier, lineitem l1, orders, nation "
+    "where s_suppkey = l1.l_suppkey and o_orderkey = l1.l_orderkey "
+    "and o_orderstatus = 'F' and l1.l_receiptdate > l1.l_commitdate "
+    "and s_nationkey = n_nationkey and n_name = 'SAUDI ARABIA' "
+    "and exists (select * from lineitem l2 where "
+    "l2.l_orderkey = l1.l_orderkey and l2.l_suppkey <> l1.l_suppkey) "
+    "and not exists (select * from lineitem l3 where "
+    "l3.l_orderkey = l1.l_orderkey and l3.l_suppkey <> l1.l_suppkey "
+    "and l3.l_receiptdate > l3.l_commitdate) "
+    "group by s_suppkey order by numwait desc, s_suppkey limit 100"
+)
+Q22_SQL = (
+    "select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal "
+    "from (select substring(c_phone, 1, 2) as cntrycode, c_acctbal "
+    "from customer where substring(c_phone, 1, 2) in "
+    "('13', '31', '23', '29', '30', '18', '17') "
+    "and c_acctbal > (select avg(c_acctbal) from customer "
+    "where c_acctbal > 0.00 and substring(c_phone, 1, 2) in "
+    "('13', '31', '23', '29', '30', '18', '17')) "
+    "and not exists (select * from orders where o_custkey = c_custkey)"
+    ") as custsale group by cntrycode order by cntrycode"
+)
+
+
+def _days(s: str) -> int:
+    return int(date_to_days(s))
+
+
+def _year(days: np.ndarray) -> np.ndarray:
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def _dates(days: np.ndarray) -> list:
+    if len(days) == 0:
+        return []
+    return np.datetime_as_string(np.asarray(days).astype("datetime64[D]"), unit="D").tolist()
+
+
+def _str_mask(col, pred) -> np.ndarray:
+    """Rows whose string satisfies `pred`, evaluated once per dictionary
+    value with plain str methods."""
+    lut = np.array([bool(pred(s)) for s in col.dictionary.tolist()] or [False])
+    return lut[col.data]
+
+
+def _code(col, value: str) -> int:
+    """Dictionary code of `value`, or -1 where the column never holds it."""
+    d = col.dictionary
+    i = int(np.searchsorted(d, value))
+    return i if i < len(d) and d[i] == value else -1
+
+
+def _strs(col, rows) -> list:
+    return col.dictionary[col.data[rows]].tolist()
+
+
+def _lookup(keys: np.ndarray, values: np.ndarray, fill, dtype=None) -> np.ndarray:
+    """Dense key -> value table over keys 0..max (the TPC-H keys are
+    small positive integers); absent keys hold `fill`."""
+    out = np.full(int(keys.max(initial=0)) + 1, fill, dtype=dtype or values.dtype)
+    out[keys] = values
+    return out
+
+
+def _at(table: np.ndarray, keys: np.ndarray, fill):
+    """table[keys] with keys past the table reading `fill`."""
+    inside = (keys >= 0) & (keys < len(table))
+    return np.where(inside, table[np.clip(keys, 0, len(table) - 1)], fill)
+
+
+def _sums(inverse: np.ndarray, values: np.ndarray, n: int) -> np.ndarray:
+    """Exact int64 sums per group (np.bincount would round via float64)."""
+    out = np.zeros(n, dtype=np.int64)
+    np.add.at(out, inverse, values.astype(np.int64))
+    return out
+
+
+def _dec(v, scale: int):
+    """A scaled DECIMAL as the engine presents it (float of v / 10^s)."""
+    return (np.asarray(v, dtype=np.int64) / (10**scale)).tolist()
+
+
+def _nation_codes(cat, names) -> np.ndarray:
+    """Nation keys -> whether the nation's name is in `names`."""
+    nat = _cols(cat, "nation")
+    return _lookup(nat["n_nationkey"].data, _str_mask(nat["n_name"], lambda s: s in names), False)
+
+
+def _region_nations(cat, region: str) -> np.ndarray:
+    """Nation keys -> whether the nation lies in `region`."""
+    reg, nat = _cols(cat, "region"), _cols(cat, "nation")
+    rk = reg["r_regionkey"].data[_str_mask(reg["r_name"], lambda s: s == region)]
+    return _lookup(nat["n_nationkey"].data, np.isin(nat["n_regionkey"].data, rk), False)
+
+
+def _nation_names(cat) -> np.ndarray:
+    nat = _cols(cat, "nation")
+    names = nat["n_name"].dictionary[nat["n_name"].data]
+    return _lookup(nat["n_nationkey"].data, names.astype(object), None, dtype=object)
+
+
+def numpy_q2(cat, size: int = 15, type_suffix: str = "BRASS", region: str = "EUROPE"):
+    part, supp, ps = _cols(cat, "part"), _cols(cat, "supplier"), _cols(cat, "partsupp")
+    in_region = _region_nations(cat, region)
+    s_nat = _lookup(supp["s_suppkey"].data, supp["s_nationkey"].data, -1)
+    s_row = _lookup(supp["s_suppkey"].data, np.arange(len(supp["s_suppkey"].data)), -1)
+    pk, sk, cost = ps["ps_partkey"].data, ps["ps_suppkey"].data, ps["ps_supplycost"].data
+    sn = _at(s_nat, sk, -1)
+    eu = (sn >= 0) & _at(in_region, sn, False)
+    min_cost = np.full(int(pk.max(initial=0)) + 1, np.iinfo(np.int64).max, dtype=np.int64)
+    np.minimum.at(min_cost, pk[eu], cost[eu])
+    p_ok = _lookup(
+        part["p_partkey"].data,
+        (part["p_size"].data == size) & _str_mask(part["p_type"], lambda s: s.endswith(type_suffix)),
+        False,
+    )
+    p_row = _lookup(part["p_partkey"].data, np.arange(len(part["p_partkey"].data)), -1)
+    m = eu & _at(p_ok, pk, False) & (cost == _at(min_cost, pk, -1))
+    srow, prow = s_row[sk[m]], p_row[pk[m]]
+    names = _nation_names(cat)
+    rows = list(zip(
+        _dec(supp["s_acctbal"].data[srow], 2), _strs(supp["s_name"], srow),
+        names[sn[m]].tolist(), pk[m].tolist(), _strs(part["p_mfgr"], prow),
+    ))
+    return sorted(rows, key=lambda r: (-r[0], r[2], r[1], r[3]))
+
+
+def numpy_q4(cat, d0: str = "1993-07-01", d1: str = "1993-10-01"):
+    orders, li = _cols(cat, "orders"), _cols(cat, "lineitem")
+    late = li["l_orderkey"].data[li["l_commitdate"].data < li["l_receiptdate"].data]
+    has_late = np.zeros(int(orders["o_orderkey"].data.max()) + 1, dtype=bool)
+    has_late[late[late < len(has_late)]] = True
+    od = orders["o_orderdate"].data
+    m = (od >= _days(d0)) & (od < _days(d1)) & has_late[orders["o_orderkey"].data]
+    pri = orders["o_orderpriority"]
+    cnt = np.bincount(pri.data[m], minlength=len(pri.dictionary))
+    return [(pri.dictionary[k], int(cnt[k])) for k in np.flatnonzero(cnt)]
+
+
+def _volume(li, m):
+    """l_extendedprice * (1 - l_discount) as a scale-4 integer."""
+    return li["l_extendedprice"].data[m] * (100 - li["l_discount"].data[m])
+
+
+def _order_custs(cat):
+    orders, cust = _cols(cat, "orders"), _cols(cat, "customer")
+    o_cust = _lookup(orders["o_orderkey"].data, orders["o_custkey"].data, -1)
+    c_nat = _lookup(cust["c_custkey"].data, cust["c_nationkey"].data, -1)
+    return o_cust, c_nat
+
+
+def numpy_q7(cat, n1: str = "FRANCE", n2: str = "GERMANY",
+             d0: str = "1995-01-01", d1: str = "1996-12-31"):
+    li, supp = _cols(cat, "lineitem"), _cols(cat, "supplier")
+    o_cust, c_nat = _order_custs(cat)
+    s_nat = _lookup(supp["s_suppkey"].data, supp["s_nationkey"].data, -1)
+    names = _nation_names(cat)
+    nat = _cols(cat, "nation")
+    k1 = int(nat["n_nationkey"].data[_str_mask(nat["n_name"], lambda s: s == n1)][0])
+    k2 = int(nat["n_nationkey"].data[_str_mask(nat["n_name"], lambda s: s == n2)][0])
+    ship = li["l_shipdate"].data
+    m = (ship >= _days(d0)) & (ship <= _days(d1))
+    sn = _at(s_nat, li["l_suppkey"].data[m], -1)
+    ck = _at(o_cust, li["l_orderkey"].data[m], -1)
+    cn = np.where(ck >= 0, _at(c_nat, ck, -1), -1)
+    pair = ((sn == k1) & (cn == k2)) | ((sn == k2) & (cn == k1))
+    idx = np.flatnonzero(m)[pair]
+    year = _year(ship[idx])
+    keys, inv = np.unique((sn[pair] * 32 + cn[pair]) * 4096 + year, return_inverse=True)
+    rev = _sums(inv, _volume(li, idx), len(keys))
+    rows = [(names[k // 4096 // 32], names[k // 4096 % 32], int(k % 4096), v)
+            for k, v in zip(keys.tolist(), _dec(rev, 4))]
+    return sorted(rows, key=lambda r: r[:3])
+
+
+def numpy_q8(cat, nation: str = "BRAZIL", region: str = "AMERICA",
+             ptype: str = "ECONOMY ANODIZED STEEL",
+             d0: str = "1995-01-01", d1: str = "1996-12-31"):
+    li, orders, supp, part = (_cols(cat, t) for t in ("lineitem", "orders", "supplier", "part"))
+    o_cust, c_nat = _order_custs(cat)
+    in_region = _region_nations(cat, region)
+    is_nation = _nation_codes(cat, {nation})
+    s_nat = _lookup(supp["s_suppkey"].data, supp["s_nationkey"].data, -1)
+    p_ok = _lookup(part["p_partkey"].data, _str_mask(part["p_type"], lambda s: s == ptype), False)
+    od = orders["o_orderdate"].data
+    o_date = _lookup(orders["o_orderkey"].data, np.where((od >= _days(d0)) & (od <= _days(d1)), od, -1), -1)
+    lk = li["l_orderkey"].data
+    date = _at(o_date, lk, -1)
+    ck = _at(o_cust, lk, -1)
+    cn = np.where(ck >= 0, _at(c_nat, ck, -1), -1)
+    sn = _at(s_nat, li["l_suppkey"].data, -1)
+    m = (_at(p_ok, li["l_partkey"].data, False) & (date >= 0) & (cn >= 0)
+         & _at(in_region, cn, False) & (sn >= 0))
+    idx = np.flatnonzero(m)
+    years, inv = np.unique(_year(date[idx]), return_inverse=True)
+    vol = _volume(li, idx)
+    den = _sums(inv, vol, len(years))
+    num = _sums(inv, np.where(_at(is_nation, sn[idx], False), vol, 0), len(years))
+    share = (num.astype(np.float64) / 10**4) / (den.astype(np.float64) / 10**4)
+    return list(zip(years.tolist(), share.tolist()))
+
+
+def numpy_q9(cat, color: str = "green"):
+    li, orders, supp, part, ps = (
+        _cols(cat, t) for t in ("lineitem", "orders", "supplier", "part", "partsupp"))
+    p_ok = _lookup(part["p_partkey"].data, _str_mask(part["p_name"], lambda s: color in s), False)
+    s_nat = _lookup(supp["s_suppkey"].data, supp["s_nationkey"].data, -1)
+    o_date = _lookup(orders["o_orderkey"].data, orders["o_orderdate"].data, -1)
+    width = int(max(ps["ps_suppkey"].data.max(), li["l_suppkey"].data.max())) + 1
+    ps_key = ps["ps_partkey"].data * width + ps["ps_suppkey"].data
+    order = np.argsort(ps_key, kind="stable")
+    ps_sorted = ps_key[order]
+    pk, sk = li["l_partkey"].data, li["l_suppkey"].data
+    m = _at(p_ok, pk, False)
+    idx = np.flatnonzero(m)
+    key = pk[idx] * width + sk[idx]
+    pos = np.clip(np.searchsorted(ps_sorted, key), 0, len(ps_sorted) - 1)
+    hit = ps_sorted[pos] == key
+    date = _at(o_date, li["l_orderkey"].data[idx], -1)
+    sn = _at(s_nat, sk[idx], -1)
+    names = _nation_names(cat)
+    ok = hit & (date >= 0) & (sn >= 0)
+    idx, pos, date, sn = idx[ok], pos[ok], date[ok], sn[ok]
+    cost = ps["ps_supplycost"].data[order[pos]]
+    amount = _volume(li, idx) - cost * li["l_quantity"].data[idx]
+    keys, inv = np.unique(sn * 4096 + _year(date), return_inverse=True)
+    total = _sums(inv, amount, len(keys))
+    rows = [(names[k // 4096], int(k % 4096), v) for k, v in zip(keys.tolist(), _dec(total, 4))]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
+def numpy_q10(cat, d0: str = "1993-10-01", d1: str = "1994-01-01", flag: str = "R",
+              limit: int = 20):
+    li, orders, cust = _cols(cat, "lineitem"), _cols(cat, "orders"), _cols(cat, "customer")
+    od = orders["o_orderdate"].data
+    om = (od >= _days(d0)) & (od < _days(d1))
+    o_cust = _lookup(orders["o_orderkey"].data, np.where(om, orders["o_custkey"].data, -1), -1)
+    m = li["l_returnflag"].data == _code(li["l_returnflag"], flag)
+    idx = np.flatnonzero(m)
+    ck = _at(o_cust, li["l_orderkey"].data[idx], -1)
+    idx, ck = idx[ck >= 0], ck[ck >= 0]
+    keys, inv = np.unique(ck, return_inverse=True)
+    rev = _sums(inv, _volume(li, idx), len(keys))
+    c_row = _lookup(cust["c_custkey"].data, np.arange(len(cust["c_custkey"].data)), -1)
+    rows_ = _at(c_row, keys, -1)
+    keys, rev, rows_ = keys[rows_ >= 0], rev[rows_ >= 0], rows_[rows_ >= 0]
+    top = np.lexsort((keys, -rev))
+    top = _with_ties(top, (rev,), limit)
+    keys, rev, r = keys[top], rev[top], rows_[top]
+    names = _nation_names(cat)
+    return list(zip(
+        keys.tolist(), _strs(cust["c_name"], r), _dec(rev, 4),
+        _dec(cust["c_acctbal"].data[r], 2), names[cust["c_nationkey"].data[r]].tolist(),
+        _strs(cust["c_address"], r), _strs(cust["c_phone"], r), _strs(cust["c_comment"], r),
+    ))
+
+
+def _with_ties(order: np.ndarray, keys, limit: int) -> np.ndarray:
+    """The first `limit` positions of `order`, plus every later one that
+    ties the last of them on all ORDER BY `keys` (which a LIMIT may take
+    in any order)."""
+    if len(order) <= limit:
+        return order
+    last = order[limit - 1]
+    tie = np.ones(len(order), dtype=bool)
+    for k in keys:
+        tie &= k[order] == k[last]
+    tie[:limit] = True
+    return order[tie]
+
+
+def _fraction(text: str):
+    """A DECIMAL literal's (physical value, scale)."""
+    scale = len(text.split(".")[1]) if "." in text else 0
+    return int(round(float(text) * 10**scale)), scale
+
+
+def numpy_q11(cat, fraction: str = "0.0001", nation: str = "GERMANY"):
+    ps, supp = _cols(cat, "partsupp"), _cols(cat, "supplier")
+    is_nation = _nation_codes(cat, {nation})
+    s_nat = _lookup(supp["s_suppkey"].data, supp["s_nationkey"].data, -1)
+    sn = _at(s_nat, ps["ps_suppkey"].data, -1)
+    m = (sn >= 0) & _at(is_nation, sn, False)
+    value = ps["ps_supplycost"].data[m] * ps["ps_availqty"].data[m]
+    keys, inv = np.unique(ps["ps_partkey"].data[m], return_inverse=True)
+    per_part = _sums(inv, value, len(keys))
+    # the subquery's DECIMAL product comes back as a float literal, and
+    # HAVING compares the scale-2 sums with it as floats
+    phys, scale = _fraction(fraction)
+    thresh = (np.int64(value.sum()) * phys) / 10 ** (2 + scale)
+    keep = per_part.astype(np.float64) / 100 > thresh
+    rows = list(zip(keys[keep].tolist(), _dec(per_part[keep], 2)))
+    return sorted(rows, key=lambda r: (-r[1], r[0]))
+
+
+def numpy_q12(cat, modes=("MAIL", "SHIP"), d0: str = "1994-01-01", d1: str = "1995-01-01"):
+    li, orders = _cols(cat, "lineitem"), _cols(cat, "orders")
+    pri = orders["o_orderpriority"]
+    high = _str_mask(pri, lambda s: s in ("1-URGENT", "2-HIGH"))
+    o_high = _lookup(orders["o_orderkey"].data, high.astype(np.int8), -1)
+    commit, receipt = li["l_commitdate"].data, li["l_receiptdate"].data
+    mode = li["l_shipmode"]
+    m = (_str_mask(mode, lambda s: s in modes) & (commit < receipt)
+         & (li["l_shipdate"].data < commit) & (receipt >= _days(d0)) & (receipt < _days(d1)))
+    idx = np.flatnonzero(m)
+    h = _at(o_high, li["l_orderkey"].data[idx], -1)
+    idx, h = idx[h >= 0], h[h >= 0]
+    code = mode.data[idx]
+    hi = np.bincount(code, weights=None, minlength=len(mode.dictionary))
+    n_hi = np.bincount(code[h == 1], minlength=len(mode.dictionary))
+    return [(mode.dictionary[k], int(n_hi[k]), int(hi[k] - n_hi[k])) for k in np.flatnonzero(hi)]
+
+
+def _like_in_order(s: str, words) -> bool:
+    """Whether `words` occur in `s` one after another (LIKE '%a%b%')."""
+    at = 0
+    for w in words:
+        i = s.find(w, at)
+        if i < 0:
+            return False
+        at = i + len(w)
+    return True
+
+
+def numpy_q13(cat, words=("special", "requests")):
+    orders, cust = _cols(cat, "orders"), _cols(cat, "customer")
+    ok = ~_str_mask(orders["o_comment"], lambda s: _like_in_order(s, words))
+    ck = cust["c_custkey"].data
+    per_cust = np.bincount(orders["o_custkey"].data[ok], minlength=int(ck.max()) + 1)
+    counts = _at(per_cust, ck, 0)
+    dist = np.bincount(counts)
+    rows = [(int(c), int(dist[c])) for c in np.flatnonzero(dist)]
+    return sorted(rows, key=lambda r: (-r[1], -r[0]))
+
+
+def numpy_q14(cat, d0: str = "1995-09-01", d1: str = "1995-10-01", prefix: str = "PROMO"):
+    li, part = _cols(cat, "lineitem"), _cols(cat, "part")
+    promo = _lookup(part["p_partkey"].data, _str_mask(part["p_type"], lambda s: s.startswith(prefix)).astype(np.int8), -1)
+    ship = li["l_shipdate"].data
+    idx = np.flatnonzero((ship >= _days(d0)) & (ship < _days(d1)))
+    p = _at(promo, li["l_partkey"].data[idx], -1)
+    idx, p = idx[p >= 0], p[p >= 0]
+    if len(idx) == 0:
+        return [(None,)]
+    vol = _volume(li, idx)
+    num, den = int(vol[p == 1].sum()), int(vol.sum())
+    # 100.00 * (scale-4 sum) is a scale-6 DECIMAL; the division is in floats
+    return [((np.float64(100 * 100 * num) / 10**6) / (np.float64(den) / 10**4),)]
+
+
+def numpy_q15(cat, d0: str = "1996-01-01", d1: str = "1996-04-01"):
+    li, supp = _cols(cat, "lineitem"), _cols(cat, "supplier")
+    ship = li["l_shipdate"].data
+    idx = np.flatnonzero((ship >= _days(d0)) & (ship < _days(d1)))
+    keys, inv = np.unique(li["l_suppkey"].data[idx], return_inverse=True)
+    rev = _sums(inv, _volume(li, idx), len(keys))
+    s_row = _lookup(supp["s_suppkey"].data, np.arange(len(supp["s_suppkey"].data)), -1)
+    top = keys[rev == rev.max()] if len(rev) else keys
+    r = _at(s_row, top, -1)
+    top, r = top[r >= 0], r[r >= 0]
+    return list(zip(top.tolist(), _strs(supp["s_name"], r), _dec(np.full(len(r), rev.max() if len(rev) else 0), 4)))
+
+
+def numpy_q16(cat, brand: str = "Brand#45", type_prefix: str = "MEDIUM POLISHED",
+              sizes=(49, 14, 23, 45, 19, 3, 36, 9), words=("Customer", "Complaints")):
+    ps, part, supp = _cols(cat, "partsupp"), _cols(cat, "part"), _cols(cat, "supplier")
+    bad = supp["s_suppkey"].data[_str_mask(supp["s_comment"], lambda s: _like_in_order(s, words))]
+    p_ok = (_str_mask(part["p_brand"], lambda s: s != brand)
+            & _str_mask(part["p_type"], lambda s: not s.startswith(type_prefix))
+            & np.isin(part["p_size"].data, sizes))
+    p_row = _lookup(part["p_partkey"].data, np.where(p_ok, np.arange(len(p_ok)), -1), -1)
+    r = _at(p_row, ps["ps_partkey"].data, -1)
+    m = (r >= 0) & ~np.isin(ps["ps_suppkey"].data, bad)
+    r, sk = r[m], ps["ps_suppkey"].data[m]
+    b, t, z = part["p_brand"].data[r], part["p_type"].data[r], part["p_size"].data[r]
+    group = (b.astype(np.int64) * 4096 + t) * 4096 + z
+    pairs = np.unique(np.stack([group, sk]), axis=1)
+    keys, cnt = np.unique(pairs[0], return_counts=True)
+    bd, td = part["p_brand"].dictionary, part["p_type"].dictionary
+    rows = [(bd[k // 4096 // 4096], td[k // 4096 % 4096], int(k % 4096), int(c))
+            for k, c in zip(keys.tolist(), cnt.tolist())]
+    return sorted(rows, key=lambda r: (-r[3], r[0], r[1], r[2]))
+
+
+def numpy_q17(cat, brand: str = "Brand#23", container: str = "MED BAG"):
+    li, part = _cols(cat, "lineitem"), _cols(cat, "part")
+    pk, qty = li["l_partkey"].data, li["l_quantity"].data
+    n = int(pk.max()) + 1
+    cnt = np.bincount(pk, minlength=n)
+    tot = np.zeros(n, dtype=np.int64)
+    np.add.at(tot, pk, qty)
+    p_ok = _lookup(part["p_partkey"].data, _str_mask(part["p_brand"], lambda s: s == brand)
+                   & _str_mask(part["p_container"], lambda s: s == container), False)
+    idx = np.flatnonzero(_at(p_ok, pk, False))
+    k = pk[idx]
+    # the engine's float compare: l_quantity / 100 < 0.2 * (sum / (count * 100))
+    avg = tot[k].astype(np.float64) / (cnt[k].astype(np.float64) * 100)
+    m = qty[idx].astype(np.float64) / 100 < (2 / 10) * avg
+    if not m.any():
+        return [(None,)]
+    total = int(li["l_extendedprice"].data[idx[m]].sum())
+    return [((np.float64(total) / 100) / (70 / 10),)]
+
+
+def numpy_q18(cat, quantity: int = 300, limit: int = 100):
+    li, orders = _cols(cat, "lineitem"), _cols(cat, "orders")
+    lk, qty = li["l_orderkey"].data, li["l_quantity"].data
+    tot = np.zeros(int(lk.max()) + 1, dtype=np.int64)
+    np.add.at(tot, lk, qty)
+    ok = orders["o_orderkey"].data
+    ck = _cols(cat, "customer")["c_custkey"].data
+    cust_ok = _at(_lookup(ck, np.ones(len(ck), dtype=bool), False), orders["o_custkey"].data, False)
+    r = np.flatnonzero((_at(tot, ok, 0) > quantity * 100) & cust_ok)
+    price, date = orders["o_totalprice"].data[r], orders["o_orderdate"].data[r]
+    order = _with_ties(np.lexsort((date, -price)), (price, date), limit)
+    r = r[order]
+    return list(zip(
+        orders["o_custkey"].data[r].tolist(), ok[r].tolist(), _dates(orders["o_orderdate"].data[r]),
+        _dec(orders["o_totalprice"].data[r], 2), _dec(tot[ok[r]], 2),
+    ))
+
+
+def numpy_q19(cat):
+    li, part = _cols(cat, "lineitem"), _cols(cat, "part")
+    groups = [("Brand#12", ("SM CASE", "SM BOX", "SM PACK"), 1, 11, 5),
+              ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10, 20, 10),
+              ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20, 30, 15)]
+    p_row = _lookup(part["p_partkey"].data, np.arange(len(part["p_partkey"].data)), -1)
+    base = (_str_mask(li["l_shipmode"], lambda s: s in ("AIR", "REG AIR"))
+            & _str_mask(li["l_shipinstruct"], lambda s: s == "DELIVER IN PERSON"))
+    idx = np.flatnonzero(base)
+    r = _at(p_row, li["l_partkey"].data[idx], -1)
+    idx, r = idx[r >= 0], r[r >= 0]
+    qty, size = li["l_quantity"].data[idx], part["p_size"].data[r]
+    hit = np.zeros(len(idx), dtype=bool)
+    for brand, containers, q0, q1, s1 in groups:
+        hit |= (_str_mask(part["p_brand"], lambda s: s == brand)[r]
+                & _str_mask(part["p_container"], lambda s: s in containers)[r]
+                & (qty >= q0 * 100) & (qty <= q1 * 100) & (size >= 1) & (size <= s1))
+    if not hit.any():
+        return [(None,)]
+    return [(_dec(_volume(li, idx[hit]).sum(), 4),)]
+
+
+def numpy_q20(cat, prefix: str = "forest", nation: str = "CANADA",
+              d0: str = "1994-01-01", d1: str = "1995-01-01"):
+    li, supp, part, ps = (_cols(cat, t) for t in ("lineitem", "supplier", "part", "partsupp"))
+    forest = _lookup(part["p_partkey"].data, _str_mask(part["p_name"], lambda s: s.startswith(prefix)), False)
+    ship = li["l_shipdate"].data
+    lm = (ship >= _days(d0)) & (ship < _days(d1)) & _at(forest, li["l_partkey"].data, False)
+    width = int(max(ps["ps_suppkey"].data.max(), li["l_suppkey"].data.max())) + 1
+    keys, inv = np.unique(li["l_partkey"].data[lm] * width + li["l_suppkey"].data[lm], return_inverse=True)
+    shipped = _sums(inv, li["l_quantity"].data[lm], len(keys))
+    pm = _at(forest, ps["ps_partkey"].data, False)
+    pkey = ps["ps_partkey"].data[pm] * width + ps["ps_suppkey"].data[pm]
+    pos = np.clip(np.searchsorted(keys, pkey), 0, max(len(keys) - 1, 0))
+    hit = (keys[pos] == pkey) if len(keys) else np.zeros(len(pkey), dtype=bool)
+    # ps_availqty > 0.5 * sum(l_quantity): scale-3 integers, 1000 * a > 5 * s
+    good = hit & (1000 * ps["ps_availqty"].data[pm] > 5 * np.where(hit, shipped[pos], 0))
+    good_supp = np.unique(ps["ps_suppkey"].data[pm][good])
+    is_nation = _nation_codes(cat, {nation})
+    r = np.flatnonzero(np.isin(supp["s_suppkey"].data, good_supp)
+                       & _at(is_nation, supp["s_nationkey"].data, False))
+    return sorted(zip(_strs(supp["s_name"], r), _strs(supp["s_address"], r)))
+
+
+def numpy_q21(cat, nation: str = "SAUDI ARABIA", status: str = "F", limit: int = 100):
+    li, orders, supp = _cols(cat, "lineitem"), _cols(cat, "orders"), _cols(cat, "supplier")
+    is_nation = _nation_codes(cat, {nation})
+    s_in = _lookup(supp["s_suppkey"].data, _at(is_nation, supp["s_nationkey"].data, False), False)
+    st = orders["o_orderstatus"]
+    o_ok = _lookup(orders["o_orderkey"].data, st.data == _code(st, status), False)
+    lk, sk = li["l_orderkey"].data, li["l_suppkey"].data
+    late = li["l_receiptdate"].data > li["l_commitdate"].data
+    cand = late & _at(s_in, sk, False) & _at(o_ok, lk, False)
+    # only the orders holding a candidate row matter: count, per order and
+    # per (order, supplier), all rows and late rows
+    held = np.zeros(int(lk.max()) + 1, dtype=bool)
+    held[lk[cand]] = True
+    rows = np.flatnonzero(held[lk])
+    width = int(sk.max()) + 1
+    okeys, oinv = np.unique(lk[rows], return_inverse=True)
+    n_all = np.bincount(oinv, minlength=len(okeys))
+    n_late = np.bincount(oinv, weights=late[rows], minlength=len(okeys)).astype(np.int64)
+    pkeys, pinv = np.unique(lk[rows] * width + sk[rows], return_inverse=True)
+    p_all = np.bincount(pinv, minlength=len(pkeys))
+    p_late = np.bincount(pinv, weights=late[rows], minlength=len(pkeys)).astype(np.int64)
+    c = cand[rows]
+    other = n_all[oinv[c]] - p_all[pinv[c]] > 0
+    other_late = n_late[oinv[c]] - p_late[pinv[c]] > 0
+    keys, cnt = np.unique(sk[rows][c][other & ~other_late], return_counts=True)
+    order = _with_ties(np.lexsort((keys, -cnt)), (cnt, keys), limit)
+    return list(zip(keys[order].tolist(), cnt[order].tolist()))
+
+
+def numpy_q22(cat, codes=("13", "31", "23", "29", "30", "18", "17")):
+    cust, orders = _cols(cat, "customer"), _cols(cat, "orders")
+    phone = cust["c_phone"]
+    code_of = np.array([s[:2] for s in phone.dictionary.tolist()] or [""], dtype=object)
+    in_codes = _str_mask(phone, lambda s: s[:2] in codes)
+    bal = cust["c_acctbal"].data
+    pos = in_codes & (bal > 0)
+    if not pos.any():
+        return []
+    # the subquery's AVG comes back as a float literal; the compare is in floats
+    avg = np.float64(bal[pos].sum()) / (np.float64(pos.sum()) * 100)
+    ck = cust["c_custkey"].data
+    n_orders = np.bincount(orders["o_custkey"].data, minlength=int(ck.max()) + 1)
+    m = in_codes & (bal.astype(np.float64) / 100 > avg) & (_at(n_orders, ck, 0) == 0)
+    cc = code_of[phone.data[m]]
+    keys, inv = np.unique(cc, return_inverse=True)
+    cnt = np.bincount(inv, minlength=len(keys))
+    tot = _sums(inv, bal[m], len(keys))
+    return list(zip(keys.tolist(), cnt.tolist(), _dec(tot, 2)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TpchQuery:
+    """A TPC-H query of tests/test_tpch_sql.py with its numpy oracle.
+    ``sql`` holds ``{name}`` placeholders (``str.format``) for the
+    substitution parameters that file scales down; the oracle takes the
+    same names as keywords, after the catalog. ``order`` are the result
+    columns ORDER BY sorts on (None: no ORDER BY)."""
+
+    sql: str
+    oracle: Callable
+    order: Optional[Tuple[int, ...]] = None
+    limit: Optional[int] = None
+    #: the values tests/test_tpch_sql.py uses at sf 0.002
+    test_params: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+
+def spec_params(name: str, sf: float) -> Dict[str, object]:
+    """The TPC-H specification's substitution values at scale `sf` for
+    the parameters tests/test_tpch_sql.py scales down."""
+    if name == "q11":
+        return {"fraction": f"{0.0001 / sf:.12f}".rstrip("0")}
+    if name == "q18":
+        return {"quantity": 300}
+    return {}
+
+
+TPCH_QUERIES: Dict[str, TpchQuery] = {
+    "q2": TpchQuery(Q2_SQL, numpy_q2, (0, 2, 1, 3), 100),
+    "q4": TpchQuery(Q4_SQL, numpy_q4, (0,)),
+    "q7": TpchQuery(Q7_SQL, numpy_q7, (0, 1, 2)),
+    "q8": TpchQuery(Q8_SQL, numpy_q8, (0,)),
+    "q9": TpchQuery(Q9_SQL, numpy_q9, (0, 1)),
+    "q10": TpchQuery(Q10_SQL, numpy_q10, (2, 0), 20),
+    "q11": TpchQuery(Q11_SQL, numpy_q11, (1, 0), test_params={"fraction": "0.005"}),
+    "q12": TpchQuery(Q12_SQL, numpy_q12, (0,)),
+    "q13": TpchQuery(Q13_SQL, numpy_q13, (1, 0)),
+    "q14": TpchQuery(Q14_SQL, numpy_q14),
+    "q15": TpchQuery(Q15_SQL, numpy_q15, (0,)),
+    "q16": TpchQuery(Q16_SQL, numpy_q16, (3, 0, 1, 2)),
+    "q17": TpchQuery(Q17_SQL, numpy_q17),
+    "q18": TpchQuery(Q18_SQL, numpy_q18, (3, 2), 100, test_params={"quantity": 120}),
+    "q19": TpchQuery(Q19_SQL, numpy_q19),
+    "q20": TpchQuery(Q20_SQL, numpy_q20, (0,)),
+    "q21": TpchQuery(Q21_SQL, numpy_q21, (1, 0), 100),
+    "q22": TpchQuery(Q22_SQL, numpy_q22, (0,)),
+}
+
+
+def same_value(a, b, rel: float = 1e-12) -> bool:
+    """Exact equality of value and type, except floats within `rel`
+    relative."""
+    if isinstance(a, float) and isinstance(b, float):
+        if math.isnan(a) or math.isnan(b):
+            return math.isnan(a) and math.isnan(b)
+        return a == b or abs(a - b) <= rel * max(abs(a), abs(b))
+    return a == b and type(a) is type(b)
+
+
+def _same_row(g, w, rel) -> bool:
+    return len(g) == len(w) and all(same_value(x, y, rel) for x, y in zip(g, w))
+
+
+def _canon(r):
+    """A sort key that lines up equal rows (floats by value)."""
+    return (tuple((v is None, str(v)) for v in r if not isinstance(v, float)),
+            tuple(v for v in r if isinstance(v, float)))
+
+
+def _same_multiset(got, want, rel) -> bool:
+    if len(got) != len(want):
+        return False
+    return all(_same_row(g, w, rel) for g, w in zip(sorted(got, key=_canon), sorted(want, key=_canon)))
+
+
+def check_rows(got, want, order=None, limit=None, rel: float = 1e-12) -> None:
+    """Raise AssertionError unless `got` are the rows `want` allows.
+
+    Without ORDER BY (`order` None), the rows are equal as multisets.
+    With it, `want` is the oracle's whole result in ORDER BY order (or its
+    first `limit` rows and every row tying the last of them): the ORDER
+    BY columns of `got` equal `want`'s row for row, the rows of each run
+    of equal ORDER BY values are equal as multisets, and where LIMIT cuts
+    a run, the rows kept come from that run."""
+    got, want = [tuple(r) for r in got], [tuple(r) for r in want]
+    if order is None:
+        assert _same_multiset(got, want, rel), (got[:5], want[:5])
+        return
+    n = len(want) if limit is None else min(limit, len(want))
+    assert len(got) == n, (len(got), n, got[:3], want[:3])
+
+    def key(r):
+        return tuple(r[c] for c in order)
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same_row(key(g), key(w), rel), (i, g, w)
+    i = 0
+    while i < n:
+        j = i
+        while j < len(want) and key(want[j]) == key(want[i]):
+            j += 1
+        run_got, run_want = got[i:min(j, n)], want[i:j]
+        if j <= n:
+            assert _same_multiset(run_got, run_want, rel), (i, run_got, run_want)
+        else:
+            pool = list(run_want)
+            for g in run_got:
+                k = next((x for x, w in enumerate(pool) if _same_row(g, w, rel)), None)
+                assert k is not None, (g, run_want)
+                pool.pop(k)
+        i = j

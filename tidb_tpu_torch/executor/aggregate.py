@@ -299,9 +299,9 @@ def _dense_compact_group_aggregate(
     cl = torch.zeros(dense, dtype=torch.int64, device=dev)
     if any(a.func == "first" for a in aggs):
         cap = batch.capacity
-        claimer = torch.full((dense + 1,), cap, dtype=torch.int64, device=dev)
+        claimer = torch.full((dense + _OVERFLOW_SPREAD,), cap, dtype=torch.int64, device=dev)
         claimer.scatter_reduce_(
-            0, seg.to(torch.int64),
+            0, _overflow_slot(seg, dense),
             torch.arange(cap, dtype=torch.int64, device=dev), "amin",
         )
         cl = claimer[:dense].clamp(max=cap - 1)
@@ -317,18 +317,14 @@ def _dense_compact_group_aggregate(
         wide = Batch(wide.cols, occupied)
     ngroups = torch.where(stale, torch.full_like(ngroups, WIDTH_STALE), ngroups)
 
-    pos = torch.where(
-        occupied,
-        prefix_sum(occupied).to(torch.int64) - 1,
-        torch.full((dense,), slots, dtype=torch.int64, device=dev),
-    )
     # compaction writes each occupied slot to its position; positions past
-    # the tile (too many groups) and unoccupied slots land in slot `slots`
-    pos = pos.clamp(max=slots)
+    # the tile (too many groups) and unoccupied slots land in the entries
+    # past it
+    pos = _overflow_slot(torch.where(occupied, prefix_sum(occupied) - 1, -1), slots)
     cols = {}
     for name, c in wide.cols.items():
-        nd = torch.zeros(slots + 1, dtype=c.data.dtype, device=dev)
-        nv = torch.zeros(slots + 1, dtype=torch.bool, device=dev)
+        nd = torch.zeros(slots + _OVERFLOW_SPREAD, dtype=c.data.dtype, device=dev)
+        nv = torch.zeros(slots + _OVERFLOW_SPREAD, dtype=torch.bool, device=dev)
         nd[pos] = c.data
         nv[pos] = c.valid
         cols[name] = DevCol(nd[:slots], nv[:slots])
@@ -452,9 +448,9 @@ def group_aggregate(
         cl = torch.zeros(slots, dtype=torch.int64, device=dev)
         if any(a.func == "first" for a in aggs):
             # a representative row per group: min row id per slot
-            claimer = torch.full((slots + 1,), cap, dtype=torch.int64, device=dev)
+            claimer = torch.full((slots + _OVERFLOW_SPREAD,), cap, dtype=torch.int64, device=dev)
             claimer.scatter_reduce_(
-                0, seg.to(torch.int64),
+                0, _overflow_slot(seg, slots),
                 torch.arange(cap, dtype=torch.int64, device=dev), "amin",
             )
             cl = claimer[:slots].clamp(max=cap - 1)
@@ -513,21 +509,30 @@ def _segment_sums(reqs, seg, slots):
         return out
     seg64 = _overflow_slot(seg, slots)
     for i, (vals, contrib) in enumerate(reqs):
-        t = torch.zeros(slots + 1, dtype=vals.dtype, device=vals.device)
+        t = torch.zeros(slots + _OVERFLOW_SPREAD, dtype=vals.dtype, device=vals.device)
         t.index_add_(0, seg64, torch.where(contrib, vals, torch.zeros_like(vals)))
         out[i] = t[:slots]
     return out
 
 
+#: overflow entries past a slot table. Rows outside the table (filtered
+#: out, or padding) are spread over them by position: on a card, atomic
+#: updates of one address serialize, and a selective filter sends most
+#: of a 2^26-row tile there (TPC-H Q15 at SF10: 58M rows, 48 ms a lane)
+_OVERFLOW_SPREAD = 1024
+
+
 def _overflow_slot(seg, slots):
-    """int64 slot ids with every row outside [0, slots) sent to `slots`
-    (torch scatters raise on out-of-range ids where jax drops them)."""
-    return torch.where((seg >= 0) & (seg < slots), seg, slots).to(torch.int64)
+    """int64 slot ids with each row outside [0, slots) sent to one of the
+    _OVERFLOW_SPREAD entries from `slots` on (torch scatters raise on
+    out-of-range ids where jax drops them)."""
+    spill = slots + (torch.arange(seg.shape[0], device=seg.device) & (_OVERFLOW_SPREAD - 1))
+    return torch.where((seg >= 0) & (seg < slots), seg.to(torch.int64), spill)
 
 
 def _segment_extreme(op, vals, contrib, ident, seg, slots):
     seg64 = _overflow_slot(seg, slots)
-    t = torch.full((slots + 1,), ident, dtype=vals.dtype, device=vals.device)
+    t = torch.full((slots + _OVERFLOW_SPREAD,), ident, dtype=vals.dtype, device=vals.device)
     src = torch.where(contrib, vals, torch.full_like(vals, ident))
     t.scatter_reduce_(0, seg64, src, "amin" if op == "min" else "amax")
     return t[:slots]

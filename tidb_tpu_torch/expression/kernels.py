@@ -1,12 +1,15 @@
 """Compile expression trees into torch functions over Batches.
 
-Counterpart of tidb_tpu/expression/kernels.py, limited to what TPC-H Q1
-and Q6 need: column refs and literals, scaled-int DECIMAL ``+ - *``
+Counterpart of tidb_tpu/expression/kernels.py, limited to what the 22
+TPC-H queries need: column refs and literals, scaled-int DECIMAL ``+ - *``
 (``_rescale``/``_numeric_align``), ``/``, DIV and MOD, comparisons (BETWEEN
 lowers to two of them), three-valued AND/OR/NOT, IS [NOT] NULL, date
-compares against folded constants, and dictionary-coded string columns
-compared with literals or with each other. Any other function raises
-``NotImplementedError`` naming it.
+compares against folded constants, dictionary-coded string columns
+compared with literals or with each other, [NOT] LIKE and IN (string
+predicates are one LUT over the dictionary, built once per compile), a
+numeric CASE, the EXTRACT family (YEAR ... DAYOFYEAR) and SUBSTRING as a
+dictionary transform. Any other function raises ``NotImplementedError``
+naming it.
 
 Null semantics are MySQL three-valued logic carried in validity masks.
 Strings are dictionary codes; each dictionary is sorted, so order
@@ -16,6 +19,8 @@ literal's position found by binary search at compile time.
 
 from __future__ import annotations
 
+import re
+from collections import OrderedDict
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -87,6 +92,55 @@ def _numeric_align(a, ta: SQLType, b, tb: SQLType, target: SQLType):
     return a.to(torch.int64), b.to(torch.int64)
 
 
+def _like_to_regex(pattern: str) -> "re.Pattern":
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+def literal_phys(v, t: Optional[SQLType]):
+    """Literal -> the column's physical encoding (scaled decimals, epoch
+    days/micros, MySQL double coercion of string-vs-numeric)."""
+    from tidb_tpu_torch.dtypes import date_to_days, datetime_to_micros, time_to_micros
+
+    if t is not None and t.kind == Kind.DECIMAL:
+        return round(float(v) * 10**t.scale)
+    if t is not None and t.kind == Kind.DATE:
+        return date_to_days(v) if isinstance(v, str) else int(v)
+    if t is not None and t.kind == Kind.DATETIME:
+        return datetime_to_micros(v) if isinstance(v, str) else int(v)
+    if t is not None and t.kind == Kind.TIME:
+        return time_to_micros(v) if isinstance(v, str) else int(v)
+    if isinstance(v, str):
+        try:
+            return float(v)  # MySQL double coercion
+        except ValueError:
+            return 0.0
+    return v
+
+
+class _DeviceLUT:
+    """A host table built once per compile, copied to each device it is
+    gathered on (once) and indexed by clamped codes."""
+
+    def __init__(self, table: np.ndarray):
+        self.table = table
+        self._on: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, codes: torch.Tensor) -> torch.Tensor:
+        key = str(codes.device)
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = torch.as_tensor(self.table, device=codes.device)
+        return t[codes.to(torch.int64).clamp(0, t.shape[0] - 1)]
+
+
 def _string_literal_code(dictionary: np.ndarray, value: str):
     """(code position, exact_match) for a literal against a sorted dict."""
     pos = int(np.searchsorted(dictionary, value))
@@ -122,8 +176,75 @@ def string_expr(e: Expr, dicts: DictContext):
         return _lit, np.array([str(e.value)], dtype=object)
     if isinstance(e, Func) and e.op == "_force_bin":
         return string_expr(e.args[0], dicts)  # passthrough marker
+    if isinstance(e, Func) and e.op == "substring":
+        return _substring_expr(e, dicts)
+    if isinstance(e, Func) and e.op in ("case", "coalesce", "ifnull"):
+        raise NotImplementedError(f"string-valued {e.op.upper()} is not ported yet")
     name = e.op if isinstance(e, Func) else type(e).__name__
     raise NotImplementedError(f"string expression {name!r} is not ported yet")
+
+
+def _substring(pos: int, ln: Optional[int]):
+    """MySQL SUBSTRING(s, pos[, ln]) of one string (pos 1-based, negative
+    from the end, 0 gives '')."""
+
+    def _sub(s):
+        if pos > 0:
+            i = pos - 1
+        elif pos < 0:
+            i = max(len(s) + pos, 0)
+        else:
+            return ""
+        if ln is None:
+            return s[i:]
+        return s[i : i + max(ln, 0)]
+
+    return _sub
+
+
+# recent SUBSTRING tables, keyed by (pos, len, id of the input
+# dictionary); each entry holds its dictionary, so the id stays its own.
+# TPC-H Q22 takes one SUBSTRING in a filter, a subquery and its GROUP BY:
+# the dictionary (1.5M phone numbers at SF10) is mapped once.
+_SUBSTRINGS: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _substring_tables(pos: int, ln: Optional[int], d: np.ndarray):
+    """(code LUT, new sorted dictionary) of a SUBSTRING over `d`."""
+    key = (pos, ln, id(d))
+    hit = _SUBSTRINGS.get(key)
+    if hit is not None and hit[0] is d:
+        _SUBSTRINGS.move_to_end(key)
+        return hit[1]
+    outs = list(map(_substring(pos, ln), (str(v) for v in d.tolist())))
+    new_dict = sorted(set(outs))
+    index = {v: i for i, v in enumerate(new_dict)}
+    codes = np.fromiter((index[o] for o in outs), dtype=np.int32, count=len(outs))
+    tables = (_DeviceLUT(codes if len(codes) else np.zeros(1, np.int32)),
+              np.array(new_dict, dtype=object))
+    _SUBSTRINGS[key] = (d, tables)
+    while len(_SUBSTRINGS) > 16:
+        _SUBSTRINGS.popitem(last=False)
+    return tables
+
+
+def _substring_expr(e: Func, dicts: DictContext):
+    """SUBSTRING as a dictionary transform: (fn yielding codes, new sorted
+    dictionary). The dictionary is mapped once on the host; the rows'
+    codes go through the resulting code LUT on the device."""
+    extra = e.args[1:]
+    if not all(isinstance(a, Literal) and a.param_slot is None for a in extra):
+        raise NotImplementedError("SUBSTRING: only literal positions and lengths are ported")
+    pos = int(extra[0].value)
+    ln = int(extra[1].value) if len(extra) > 1 else None
+    fn, d = string_expr(e.args[0], dicts)
+    lut, new_dict = _substring_tables(pos, ln, d)
+
+    def _sub(b):
+        c = fn(b)
+        return DevCol(lut(c.data), c.valid)
+
+    return _sub, new_dict
 
 
 def _null_col(dtype):
@@ -174,6 +295,18 @@ def _compile(e: Expr, dicts: DictContext) -> _CompiledExpr:
             return DevCol(~v if want_null else v, torch.ones_like(v))
 
         return _isnull
+    if op == "case":
+        if _is_string_col(e):
+            return string_expr(e, dicts)[0]
+        return _compile_case(e, dicts)
+    if op == "like":
+        return _compile_like(e, dicts)
+    if op == "in":
+        return _compile_in(e, dicts)
+    if op in _EXTRACT_PARTS:
+        return _compile_extract(e, dicts)
+    if op == "substring":
+        return string_expr(e, dicts)[0]
     raise NotImplementedError(f"function {op!r} is not ported yet")
 
 
@@ -347,19 +480,12 @@ def _compile_strstr(e: Func, dicts: DictContext) -> _CompiledExpr:
     fa, da = string_expr(ea, dicts)
     fb, db = string_expr(eb, dicts)
     _m, la, lb = _coll.merge_rank_luts(da, db, coll)
-    luts = {}
-
-    def _lut(arr, dev):
-        key = (id(arr), str(dev))
-        if key not in luts:
-            luts[key] = torch.as_tensor(np.asarray(arr, dtype=np.int64), device=dev)
-        return luts[key]
+    lut_a = _DeviceLUT(np.asarray(la, dtype=np.int64))
+    lut_b = _DeviceLUT(np.asarray(lb, dtype=np.int64))
 
     def _strstr(b):
         a, c = fa(b), fb(b)
-        lut_a, lut_b = _lut(la, b.device), _lut(lb, b.device)
-        x = lut_a[a.data.to(torch.int64).clamp(0, lut_a.shape[0] - 1)]
-        y = lut_b[c.data.to(torch.int64).clamp(0, lut_b.shape[0] - 1)]
+        x, y = lut_a(a.data), lut_b(c.data)
         valid = a.valid & c.valid
         d = _cmp(op, x, y)
         if op == "nulleq":
@@ -385,3 +511,172 @@ def _compile_logic(e: Func, dicts: DictContext) -> _CompiledExpr:
         return DevCol(true, true | false)
 
     return _logic
+
+
+def _compile_case(e: Func, dicts: DictContext) -> _CompiledExpr:
+    """CASE WHEN c1 THEN v1 ... [ELSE v] END into a numeric target: the
+    first true condition's value, the ELSE value otherwise (NULL with
+    no ELSE), each value brought to the target's representation."""
+    from tidb_tpu_torch.dtypes import FLOAT64
+
+    args = list(e.args)
+    has_else = len(args) % 2 == 1
+    else_e = args.pop() if has_else else None
+    pairs = [(args[i], args[i + 1]) for i in range(0, len(args), 2)]
+    cond_fns = [_compile(c, dicts) for c, _ in pairs]
+    val_fns = [_compile(v, dicts) for _, v in pairs]
+    val_ts = [v.type for _, v in pairs]
+    else_fn = _compile(else_e, dicts) if else_e is not None else None
+    else_t = else_e.type if else_e is not None else None
+    target = e.type
+
+    def _conv(data, t):
+        if target.kind == Kind.FLOAT:
+            return _to_float(data, t)
+        if target.kind == Kind.DECIMAL:
+            s = t.scale if t.kind == Kind.DECIMAL else 0
+            return _rescale(data.to(torch.int64), target.scale - s)
+        return data
+
+    def _case(b):
+        if else_fn is not None:
+            ec = else_fn(b)
+            out_d, out_v = _conv(ec.data, else_t), ec.valid
+        else:
+            zeros = torch.zeros(b.capacity, dtype=torch.int64, device=b.device)
+            out_d = _conv(zeros, FLOAT64 if target.kind == Kind.FLOAT else target)
+            out_v = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+        for cf, vf, vt in zip(reversed(cond_fns), reversed(val_fns), reversed(val_ts)):
+            c, v = cf(b), vf(b)
+            take = c.valid & c.data.to(torch.bool)
+            out_d = torch.where(take, _conv(v.data, vt), out_d)
+            out_v = torch.where(take, v.valid, out_v)
+        return DevCol(out_d, out_v)
+
+    return _case
+
+
+def _compile_strlut(col: Expr, dicts: DictContext, pyfn, out_dtype) -> _CompiledExpr:
+    """A per-value function of a string column as one gather: the LUT is
+    `pyfn` over the column's dictionary, built here once per compile."""
+    f, dictionary = string_expr(col, dicts)
+    table = (
+        np.array([pyfn(str(s)) for s in dictionary.tolist()]).astype(out_dtype)
+        if len(dictionary)
+        else np.zeros(1, dtype=out_dtype)
+    )
+    lut = _DeviceLUT(table)
+
+    def _lutf(b):
+        c = f(b)
+        return DevCol(lut(c.data), c.valid)
+
+    return _lutf
+
+
+def _compile_like(e: Func, dicts: DictContext) -> _CompiledExpr:
+    col, pat = e.args
+    if not isinstance(pat, Literal) or pat.param_slot is not None:
+        raise NotImplementedError("LIKE: only a literal pattern is ported")
+    rx = _like_to_regex(str(pat.value))
+    return _compile_strlut(col, dicts, lambda s: bool(rx.match(s)), np.bool_)
+
+
+def _compile_in(e: Func, dicts: DictContext) -> _CompiledExpr:
+    """x IN (literals). MySQL: x IN (a, b, NULL) is TRUE on a match and
+    NULL otherwise. A string column is one LUT gather; a numeric column
+    is one equality pass per listed value, OR-ed (no [N, k] matrix)."""
+    col, *lits = e.args
+    if any(not isinstance(x, Literal) or x.param_slot is not None for x in lits):
+        raise NotImplementedError("IN list must hold plain literals")
+    has_null = any(x.value is None for x in lits)
+    lits = [x for x in lits if x.value is not None]
+    if _is_string_col(col):
+        vals = set(str(x.value) for x in lits)
+        match_fn = _compile_strlut(col, dicts, lambda s: s in vals, np.bool_)
+    else:
+        f = _compile(col, dicts)
+        phys = np.array([literal_phys(x.value, col.type) for x in lits])
+        as_float = phys.dtype.kind == "f" or (col.type is not None and col.type.kind == Kind.FLOAT)
+        consts = phys.tolist()
+
+        def match_fn(b):
+            c = f(b)
+            x = c.data.to(torch.float64 if as_float else torch.int64)
+            d = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+            for v in consts:
+                d |= x == v
+            return DevCol(d, c.valid)
+
+    def _in(b):
+        m = match_fn(b)
+        valid = m.valid & m.data if has_null else m.valid
+        return DevCol(m.data, valid)
+
+    return _in
+
+
+_EXTRACT_PARTS = ("year", "month", "day", "quarter", "dayofweek", "weekday", "dayofyear")
+
+
+def _to_days(data, t: Optional[SQLType]):
+    """Temporal value -> days since the epoch (DATETIME truncates micros)."""
+    if t is not None and t.kind == Kind.DATETIME:
+        from tidb_tpu_torch.dtypes import US_PER_DAY
+
+        return _floordiv(data.to(torch.int64), US_PER_DAY)
+    return data.to(torch.int64)
+
+
+def _floordiv(x, k: int):
+    return torch.div(x, k, rounding_mode="floor")
+
+
+def _compile_extract(e: Func, dicts: DictContext) -> _CompiledExpr:
+    """YEAR/MONTH/DAY/QUARTER/DAYOFWEEK/WEEKDAY/DAYOFYEAR from days since
+    the epoch: the branchless integer civil-calendar algorithm (Howard
+    Hinnant's days_from_civil inverse), which needs flooring division for
+    days before 1970."""
+    part = e.op
+    (col,) = e.args
+    f = _compile(col, dicts)
+
+    def _ext(b):
+        c = f(b)
+        days = _to_days(c.data, col.type)
+        z = days + 719468
+        era = _floordiv(z, 146097)
+        doe = z - era * 146097
+        yoe = _floordiv(
+            doe - _floordiv(doe, 1460) + _floordiv(doe, 36524) - _floordiv(doe, 146096), 365
+        )
+        y = yoe + era * 400
+        doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+        mp = _floordiv(5 * doy + 2, 153)
+        d = doy - _floordiv(153 * mp + 2, 5) + 1
+        m = torch.where(mp < 10, mp + 3, mp - 9)
+        y = torch.where(m <= 2, y + 1, y)
+        if part == "year":
+            out = y
+        elif part == "month":
+            out = m
+        elif part == "day":
+            out = d
+        elif part == "quarter":
+            out = _floordiv(m + 2, 3)
+        elif part == "dayofweek":
+            # 1970-01-01 was a Thursday; MySQL numbers Sunday=1..Saturday=7
+            out = torch.remainder(days + 4, 7) + 1
+        elif part == "weekday":
+            # MySQL WEEKDAY: Monday=0..Sunday=6
+            out = torch.remainder(days + 3, 7)
+        else:  # dayofyear: days since Jan 1 of the civil year y
+            y2 = y - 1
+            era2 = _floordiv(y2, 400)
+            yoe2 = y2 - era2 * 400
+            doe2 = yoe2 * 365 + _floordiv(yoe2, 4) - _floordiv(yoe2, 100) + 306
+            jan1 = era2 * 146097 + doe2 - 719468
+            out = days - jan1 + 1
+        return DevCol(out.to(torch.int64), c.valid)
+
+    return _ext

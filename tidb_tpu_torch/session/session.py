@@ -4,10 +4,11 @@ Counterpart of tidb_tpu/session/session.py for two statement kinds: a
 SELECT over stored tables and ANALYZE TABLE. ``execute`` parses, plans
 (``build_query``), runs the plan on the session's device and
 materializes rows, as the JAX session's ``_run_select`` does, and
-returns the same ``Result``; ANALYZE stores per-column statistics that
-the planner's join ordering reads. Other statements (DDL, DML, SET,
-FROM-less SELECT) and the MySQL server belong to later slices and raise
-``NotImplementedError``.
+returns the same ``Result``; an uncorrelated scalar subquery runs first,
+as a statement of its own, and enters the plan as a literal. ANALYZE
+stores per-column statistics that the planner's join ordering reads.
+Other statements (DDL, DML, SET, FROM-less SELECT) and the MySQL server
+belong to later slices and raise ``NotImplementedError``.
 
 The session runs on CUDA unless the caller passes ``device="cpu"``; with
 no card present, CUDA raises instead of moving to the CPU.
@@ -20,7 +21,14 @@ import time
 from typing import List, Optional, Tuple
 
 from tidb_tpu_torch.chunk import materialize_rows, resolve_device
-from tidb_tpu_torch.dtypes import SQLType
+from tidb_tpu_torch.dtypes import (
+    Kind,
+    SQLType,
+    date_to_days,
+    datetime_to_micros,
+    time_to_micros,
+)
+from tidb_tpu_torch.expression.expr import Literal
 from tidb_tpu_torch.parser import ast, parse
 from tidb_tpu_torch.planner import build_query
 from tidb_tpu_torch.planner.physical import PhysicalExecutor
@@ -65,9 +73,36 @@ class Session:
             return Result([], [])
         raise NotImplementedError(f"{type(s).__name__} statements are not ported yet")
 
-    def _run_select(self, s) -> Result:
-        plan = build_query(s, self.catalog, self.db)
+    def _run_select(self, s, ctes=None) -> Result:
+        plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
         batch, dicts = self.executor.run(plan)
         rows = materialize_rows(batch, list(plan.schema), dicts)
         names = [c.name for c in plan.schema]
         return Result(names, rows, types=[c.type for c in plan.schema])
+
+    def _scalar_subquery(self, q, ctes=None) -> Literal:
+        """Run an uncorrelated scalar subquery as a statement of its own
+        (one device->host fetch) and return its value as a Literal:
+        NULL for no row, an error for more than one. ``ctes`` carries the
+        enclosing WITH scope, if any."""
+        r = self._run_select(q, ctes)
+        if len(r.columns) != 1:
+            raise ValueError("scalar subquery must return one column")
+        if len(r.rows) == 0:
+            return Literal(value=None)
+        if len(r.rows) > 1:
+            raise ValueError("scalar subquery returned more than one row")
+        v = r.rows[0][0]
+        t = r.types[0] if r.types else None
+        if t is not None and isinstance(v, str):
+            # temporal results present as strings; re-encode to the raw
+            # typed form so the literal composes like a temporal column
+            # (a string literal's numeric prefix would turn a datetime
+            # into its year under arithmetic)
+            if t.kind == Kind.DATE:
+                return Literal(type=t, value=int(date_to_days(v)))
+            if t.kind == Kind.DATETIME:
+                return Literal(type=t, value=int(datetime_to_micros(v)))
+            if t.kind == Kind.TIME:
+                return Literal(type=t, value=int(time_to_micros(v)))
+        return Literal(value=v)

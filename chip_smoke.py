@@ -19,10 +19,17 @@
    18 TPC-H queries (oracles.TPCH_QUERIES, at the specification's
    substitution values for SF10): each query cold once and warm three
    times, each result checked against the numpy oracles of
-   tidb_tpu_torch/bench/oracles.py. Shows that every kernel launched:
-   kernel launch counts are zeroed just before these runs and read just
-   after them.
-6. Times each kernel, its plain version and the one-call PyTorch equivalent
+   tidb_tpu_torch/bench/oracles.py.
+6. Runs the window and set-operation reports W1-W5 and U1-U3
+   (oracles.REPORT_QUERIES) on the same SF10 tables, then generates the
+   TPC-DS tables of BASELINE config #5 at SF100 with the port's
+   load_tpcds(seed=1) (7.2M web_sales rows, no ANALYZE, as bench.py runs
+   it) and runs TPC-DS Q95: each cold once and warm three times, each run
+   checked against its oracle. Each ORDER BY ... LIMIT prints the top-N
+   path it took (packed key and its width, or sorted).
+   Phases 5 and 6 each show that every kernel launched there: launch
+   counts are zeroed just before a phase's runs and read just after them.
+7. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs the main path gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
    over 3.35 TB/s and their adds over 67 Top/s. Beside the time of a call
@@ -30,7 +37,7 @@
    device time of its kernels alone (torch.profiler) and their launches
    per call.
 
-With --kernels, phases 4-5 are skipped: phase 6 runs on inputs shaped as
+With --kernels, phases 4-6 are skipped: phase 7 runs on inputs shaped as
 the main path's (TPC-H Q1's slot_sums lanes at SF10, the l_suppkey
 GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. That run
@@ -68,6 +75,9 @@ TABLES = ["orders", "lineitem", "customer", "supplier", "nation", "region", "par
 #: query does not read it
 BASE_TABLE = {"q2": "partsupp", "q11": "partsupp", "q13": "orders", "q16": "partsupp",
               "q22": "customer"}
+#: TPC-DS scale factor of Q95, BASELINE config #5's SF100 (web_sales
+#: 72,000 rows per unit)
+TPCDS_SF = 100.0
 #: float64 slot sums: summation order differs from the plain version, so
 #: each slot may differ by this fraction of the sum of |values| in it (far
 #: above the expected rounding, far below one lost or misplaced row)
@@ -482,6 +492,82 @@ def kernel_rows(seen, launches):
     return kernels
 
 
+#: the TPC-DS tables Q95 reads
+TPCDS_TABLES = ["web_sales", "web_returns", "date_dim", "customer_address", "web_site"]
+
+
+def q95_check(cat):
+    """Q95's rows against the vectorized oracle: the order count exactly,
+    the sums (cents) within 1e-12 relative."""
+    from tidb_tpu_torch.bench.oracles import numpy_q95, same_value
+
+    want = []
+
+    def check(res):
+        if not want:
+            t0 = time.perf_counter()
+            want.append(numpy_q95(cat))
+            log(f"  oracle: {want[0]} in {time.perf_counter() - t0:.1f}s")
+        (got,) = [tuple(r) for r in res.rows]
+        assert got[0] == want[0][0] and all(
+            (g is None and w is None) or same_value(g, w) for g, w in zip(got[1:], want[0][1:])
+        ), (got, want[0])
+
+    return check
+
+
+def run_phase(queries, report, base_table, before=None) -> dict:
+    """Run each (name, sql, check, session) cold once and warm three
+    times, checking every run, and add its numbers to `report`. Kernel
+    launch counts are zeroed just before the phase and returned as read
+    just after it."""
+    import torch
+
+    from tidb_tpu_torch.chunk import TRANSFERS
+    from tidb_tpu_torch.executor import kernels as K
+
+    K.reset_launches()
+    for name, sql, check, qs in queries:
+        if before is not None:
+            before(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        l0 = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        res = qs.execute(sql)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        check(res)
+        warm = []
+        f0 = TRANSFERS["d2h_fetches"]
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = qs.execute(sql)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            check(res)
+        table = base_table(name)
+        report[name] = {
+            "rows": len(res.rows),
+            "cold_s": cold,
+            "warm_s": warm,
+            "rows_per_s": table.nrows / float(np.median(warm)),
+            "rows_of": table.name,
+            # the peak includes what was resident before the query: cached
+            # columns of earlier queries and the kernel inputs kept for phase 7
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "resident_before": resident,
+            "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / 3,
+            "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES},
+            # each ORDER BY ... LIMIT of the statement: ["packed", key bits]
+            # or ["sorted", null]
+            "topn": qs.executor.last_compiled.topn,
+        }
+        log(f"{name}: " + json.dumps(report[name]))
+    return dict(K.LAUNCHES)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -500,8 +586,10 @@ def main() -> int:
     from tidb_tpu_torch import _build
     from tidb_tpu_torch.bench import load_tpch
     from tidb_tpu_torch.bench.oracles import (
-        Q1_SQL, Q3_SQL, Q5_SQL, Q6_SQL, SUPPKEY_SQL, TPCH_QUERIES, spec_params,
+        Q1_SQL, Q3_SQL, Q5_SQL, Q6_SQL, REPORT_BASE_TABLE, REPORT_QUERIES, SUPPKEY_SQL,
+        TPCH_QUERIES, spec_params,
     )
+    from tidb_tpu_torch.bench.tpcds import Q95_SQL, load_tpcds
     from tidb_tpu_torch.chunk import TRANSFERS, reset_transfers
     from tidb_tpu_torch.executor import aggregate as A
     from tidb_tpu_torch.executor import kernels as K
@@ -526,7 +614,7 @@ def main() -> int:
     kernel_edge_checks(big_n)
 
     if args.kernels:
-        log("kernels only: phases 4-5 skipped, inputs synthesized")
+        log("kernels only: phases 4-6 skipped, inputs synthesized")
         log(json.dumps({"kernel_times": kernel_rows(synthetic_inputs(), None)}))
         log(card)
         return 0
@@ -557,7 +645,8 @@ def main() -> int:
     A.slot_sums = recording("slot_sums", K.slot_sums, lambda v, c, s, n: v.numel())
     A.prefix_sum = recording("prefix_sum", K.prefix_sum, lambda x: x.numel())
 
-    # --- 4. main path ---
+    # --- 4. main path: TPC-H ---
+    reset_transfers()
     sess = Session(cat, db="tpch")
     queries = [("q1", Q1_SQL, lambda r: check_q1(r, blk, li)),
                ("q6", Q6_SQL, lambda r: check_q6(r, blk)),
@@ -567,59 +656,50 @@ def main() -> int:
     for name, q in TPCH_QUERIES.items():
         params = spec_params(name, SF)
         queries.append((name, q.sql.format(**params), oracle_check(cat, q, params)))
-    K.reset_launches()
-    reset_transfers()
+    queries = [(name, sql, check, sess) for name, sql, check in queries]
     report = {}
-    for name, sql, check in queries:
+
+    def analyze_first(name):
         if name == "q3":
             t0 = time.perf_counter()
             for t in TABLES:
                 sess.execute(f"analyze table {t}")
             torch.cuda.synchronize()
             log(f"analyze: {len(TABLES)} tables in {time.perf_counter() - t0:.1f}s")
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        l0 = dict(K.LAUNCHES)
-        t0 = time.perf_counter()
-        res = sess.execute(sql)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        check(res)
-        warm = []
-        f0 = TRANSFERS["d2h_fetches"]
-        for _ in range(3):
-            t0 = time.perf_counter()
-            res = sess.execute(sql)
-            torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
-            check(res)
-        report[name] = {
-            "rows": len(res.rows),
-            "cold_s": cold,
-            "warm_s": warm,
-            "rows_per_s": cat.table("tpch", BASE_TABLE.get(name, "lineitem")).nrows
-            / float(np.median(warm)),
-            "rows_of": BASE_TABLE.get(name, "lineitem"),
-            # the peak includes what was resident before the query: cached
-            # columns of earlier queries and the kernel inputs kept for phase 6
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "resident_before": resident,
-            "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / 3,
-            "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES},
-        }
-        log(f"{name}: " + json.dumps(report[name]))
-    launches = dict(K.LAUNCHES)
-    log(f"main path: launches {launches}, h2d_bytes {TRANSFERS['h2d_bytes']}, "
+
+    launches = {"tpch": run_phase(queries, report, lambda n: cat.table(
+        "tpch", BASE_TABLE.get(n, "lineitem")), before=analyze_first)}
+
+    # --- 5. main path: window and set-operation reports, TPC-DS Q95 ---
+    t0 = time.perf_counter()
+    ds = Catalog()
+    load_tpcds(ds, sf=TPCDS_SF, seed=1)
+    log(f"datagen: TPC-DS SF{TPCDS_SF:g}, " + ", ".join(
+        f"{t} {ds.table('test', t).nrows}" for t in TPCDS_TABLES
+    ) + f" rows in {time.perf_counter() - t0:.1f}s")
+    ds_sess = Session(ds, db="test")
+    slice6 = [(name, q.sql, oracle_check(cat, q, {}), sess) for name, q in REPORT_QUERIES.items()]
+    slice6.append(("q95", Q95_SQL, q95_check(ds), ds_sess))
+
+    def base6(name):
+        if name == "q95":
+            return ds.table("test", "web_sales")
+        return cat.table("tpch", REPORT_BASE_TABLE[name])
+
+    launches["reports_q95"] = run_phase(slice6, report, base6)
+    totals = {k: sum(ph[k] for ph in launches.values()) for k in K.LAUNCHES}
+    log(f"main path: launches by phase {launches}, h2d_bytes {TRANSFERS['h2d_bytes']}, "
         f"d2h_bytes {TRANSFERS['d2h_bytes']}, d2h_fetches {TRANSFERS['d2h_fetches']}")
-    for k, n in launches.items():
-        assert n > 0, f"kernel {k} was not launched on the main path"
+    for phase, counts in launches.items():
+        for k, n in counts.items():
+            assert n > 0, f"kernel {k} was not launched on the main path's {phase} phase"
 
     if args.profile:
-        for name, sql, _check in queries:
-            profile_query(sess, name, sql, args.profile)
+        for name, sql, _check, qs in queries + slice6:
+            profile_query(qs, name, sql, args.profile)
 
-    # --- 5. kernels on the main path's inputs: check and time ---
-    kernels = kernel_rows(seen, launches)
+    # --- 6. kernels on the main path's inputs: check and time ---
+    kernels = kernel_rows(seen, totals)
     log(json.dumps({"queries": report}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,27 +1,35 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: carry the JAX
 package's tables across to the port as numpy arrays and compare rows."""
 
+import numpy as np
+
 from tidb_tpu_torch.bench.oracles import same_value
 from tidb_tpu_torch.storage import catalog_from_numpy
 
 
 def export_tables(cat, db, names):
-    """The JAX package's tables as the numpy spec catalog_from_numpy takes."""
+    """The JAX package's tables as the numpy spec catalog_from_numpy takes.
+    A table's blocks (one per INSERT) become one: their string codes all
+    refer to the table's one dictionary per column."""
     out = {}
     for name in names:
         t = cat.table(db, name)
         blocks = t.blocks()
-        assert len(blocks) == 1, "one block per table in these tests"
-        cols = blocks[0].columns
+        data = {}
+        for n, typ in t.schema.columns:
+            cs = [b.columns[n] for b in blocks]
+            data[n] = (
+                np.concatenate([c.data for c in cs] or [np.zeros(0, typ.np_dtype)]),
+                np.concatenate([c.valid for c in cs] or [np.zeros(0, bool)]),
+                t.dictionaries.get(n),
+            )
         out[name] = {
             "columns": [
                 (n, (typ.kind.value, typ.scale, typ.collation))
                 for n, typ in t.schema.columns
             ],
             "primary_key": t.schema.primary_key,
-            "data": {
-                n: (c.data, c.valid, c.dictionary) for n, c in cols.items()
-            },
+            "data": data,
         }
     return {db: out}
 

@@ -3,7 +3,10 @@
 ``numpy_q5`` from the repo's bench.py, a ``np.bincount`` oracle for the
 l_suppkey aggregation, a vectorized ``numpy_q3``, and ``TPCH_QUERIES``:
 the other 18 TPC-H queries of tests/test_tpch_sql.py, each with its SQL
-text and a vectorized oracle, checked by ``check_rows``. They check
+text and a vectorized oracle, checked by ``check_rows``;
+``REPORT_QUERIES``, window and set-operation reports over the TPC-H
+tables; and a vectorized ``numpy_q95`` over ``tpcds.load_tpcds`` data
+(the JAX package's loops over every row). They check
 results where no JAX is installed. String predicates are evaluated on
 each dictionary with plain ``str`` methods, independent of the engine's
 LIKE.
@@ -926,9 +929,10 @@ def numpy_q22(cat, codes=("13", "31", "23", "29", "30", "18", "17")):
 
 @dataclasses.dataclass(frozen=True)
 class TpchQuery:
-    """A TPC-H query of tests/test_tpch_sql.py with its numpy oracle.
-    ``sql`` holds ``{name}`` placeholders (``str.format``) for the
-    substitution parameters that file scales down; the oracle takes the
+    """A query with its numpy oracle: a TPC-H query of
+    tests/test_tpch_sql.py, or a report of REPORT_QUERIES. ``sql`` holds
+    ``{name}`` placeholders (``str.format``) for the substitution
+    parameters that file scales down; the oracle takes the
     same names as keywords, after the catalog. ``order`` are the result
     columns ORDER BY sorts on (None: no ORDER BY)."""
 
@@ -970,6 +974,238 @@ TPCH_QUERIES: Dict[str, TpchQuery] = {
     "q21": TpchQuery(Q21_SQL, numpy_q21, (1, 0), 100),
     "q22": TpchQuery(Q22_SQL, numpy_q22, (0,)),
 }
+
+
+# ---------------------------------------------------------------------------
+# window and set-operation reports over TPC-H tables, and TPC-DS Q95
+# ---------------------------------------------------------------------------
+
+W1_SQL = (
+    "select count(*), sum(o_totalprice) from (select o_custkey, o_totalprice, "
+    "row_number() over (partition by o_custkey order by o_totalprice desc, o_orderkey) rn "
+    "from orders) t where rn <= 3"
+)
+W2_SQL = (
+    "select o_orderpriority, max(rs) from (select o_orderpriority, sum(o_totalprice) over "
+    "(partition by o_orderpriority order by o_orderdate, o_orderkey rows between unbounded "
+    "preceding and current row) rs from orders) t group by o_orderpriority "
+    "order by o_orderpriority"
+)
+W3_SQL = (
+    "select count(*) from (select o_custkey, o_orderdate, lag(o_orderdate) over "
+    "(partition by o_custkey order by o_orderdate, o_orderkey) prev from orders) t "
+    "where prev is not null and datediff(o_orderdate, prev) < 30"
+)
+W4_SQL = (
+    "select l_suppkey, sum(l_extendedprice) rev, sum(l_extendedprice) * 100 / "
+    "sum(sum(l_extendedprice)) over () pct, rank() over (order by sum(l_extendedprice) desc) rk "
+    "from lineitem where l_shipdate >= date '1995-01-01' and l_shipdate < date '1995-04-01' "
+    "group by l_suppkey order by rk, l_suppkey limit 10"
+)
+W5_SQL = (
+    "select o_orderpriority, count(*), avg(o_totalprice) from (select o_orderpriority, "
+    "o_totalprice, ntile(4) over (partition by o_orderpriority order by o_totalprice, "
+    "o_orderkey) q, cume_dist() over (partition by o_orderpriority order by o_totalprice) cd "
+    "from orders) t where q = 4 group by o_orderpriority order by o_orderpriority"
+)
+U1_SQL = (
+    "select k, count(*), sum(v) from (select l_suppkey k, l_extendedprice v from lineitem "
+    "where l_shipdate < date '1993-01-01' union all select ps_suppkey k, ps_supplycost v "
+    "from partsupp) u group by k order by 3 desc, k limit 10"
+)
+U2_SQL = (
+    "select count(*) from (select o_custkey from orders where o_orderdate < date '1995-01-01' "
+    "union select c_custkey from customer where c_acctbal > 9000) u"
+)
+U3_SQL = (
+    "select count(*) from (select o_custkey from orders where o_orderdate < date '1995-01-01' "
+    "except select c_custkey from customer where c_mktsegment = 'BUILDING') t"
+)
+
+
+def _run_pos(sorted_keys) -> np.ndarray:
+    """Each row's position within its run of equal `sorted_keys` (a tuple
+    of arrays in the rows' sorted order)."""
+    n = len(sorted_keys[0])
+    change = np.zeros(n, dtype=bool)
+    if n:
+        change[0] = True
+    for k in sorted_keys:
+        change[1:] |= k[1:] != k[:-1]
+    idx = np.arange(n)
+    return idx - np.maximum.accumulate(np.where(change, idx, 0))
+
+
+def _priority_rows(o, per_code):
+    """(o_orderpriority, value) per priority code present, in ORDER BY
+    o_orderpriority order (dictionary codes are in string order)."""
+    d = o["o_orderpriority"].dictionary
+    return [(str(d[c]), v) for c, v in per_code]
+
+
+def numpy_w1(cat, n: int = 3):
+    o = _cols(cat, "orders")
+    cust, price, key = o["o_custkey"].data, o["o_totalprice"].data, o["o_orderkey"].data
+    order = np.lexsort((key, -price, cust))
+    top = order[_run_pos((cust[order],)) < n]
+    if len(top) == 0:
+        return [(0, None)]
+    return [(len(top), int(price[top].sum()) / 100)]
+
+
+def numpy_w2(cat):
+    o = _cols(cat, "orders")
+    pr, price = o["o_orderpriority"].data, o["o_totalprice"].data
+    order = np.lexsort((o["o_orderkey"].data, o["o_orderdate"].data, pr))
+    p, c = pr[order], np.cumsum(price[order])
+    start = np.flatnonzero(np.r_[True, p[1:] != p[:-1]]) if len(p) else np.zeros(0, np.int64)
+    base = np.r_[0, c][start]
+    rows = []
+    for i, s in enumerate(start):
+        e = start[i + 1] if i + 1 < len(start) else len(p)
+        rows.append((int(p[s]), int((c[s:e] - base[i]).max()) / 100))
+    return _priority_rows(o, rows)
+
+
+def numpy_w3(cat, days: int = 30):
+    o = _cols(cat, "orders")
+    cust, date = o["o_custkey"].data, o["o_orderdate"].data.astype(np.int64)
+    order = np.lexsort((o["o_orderkey"].data, date, cust))
+    c, d = cust[order], date[order]
+    ok = (c[1:] == c[:-1]) & (d[1:] - d[:-1] < days)
+    return [(int(ok.sum()),)]
+
+
+def numpy_w4(cat, d0: str = "1995-01-01", d1: str = "1995-04-01"):
+    li = _cols(cat, "lineitem")
+    ship = li["l_shipdate"].data
+    idx = np.flatnonzero((ship >= _days(d0)) & (ship < _days(d1)))
+    keys, inv = np.unique(li["l_suppkey"].data[idx], return_inverse=True)
+    rev = _sums(inv, li["l_extendedprice"].data[idx], len(keys))
+    total = np.float64(int(rev.sum())) / 100
+    # rank: one more than the groups with a larger sum
+    rank = len(rev) - np.searchsorted(np.sort(rev), rev, side="right") + 1
+    order = np.lexsort((keys, rank))
+    return [
+        (int(keys[i]), int(rev[i]) / 100, (np.float64(int(rev[i]) * 100) / 100) / total,
+         int(rank[i]))
+        for i in order
+    ]
+
+
+def numpy_w5(cat, buckets: int = 4):
+    o = _cols(cat, "orders")
+    pr, price = o["o_orderpriority"].data, o["o_totalprice"].data
+    order = np.lexsort((o["o_orderkey"].data, price, pr))
+    p = pr[order]
+    pos = _run_pos((p,))
+    nrows = np.bincount(p, minlength=int(p.max(initial=0)) + 1)[p]
+    # MySQL NTILE: the first (rows % n) buckets get one extra row
+    base, rem = nrows // buckets, nrows % buckets
+    big = rem * (base + 1)
+    bucket = np.where(pos < big, pos // np.maximum(base + 1, 1),
+                      rem + (pos - big) // np.maximum(base, 1)) + 1
+    last = order[bucket == buckets]
+    rows = []
+    for code in np.unique(pr[last]):
+        m = last[pr[last] == code]
+        s, cnt = int(price[m].sum()), len(m)
+        rows.append((int(code), (cnt, np.float64(s) / (np.float64(cnt) * 100))))
+    return [(name, *v) for name, v in _priority_rows(o, rows)]
+
+
+def numpy_u1(cat, d: str = "1993-01-01"):
+    li, ps = _cols(cat, "lineitem"), _cols(cat, "partsupp")
+    m = li["l_shipdate"].data < _days(d)
+    k = np.concatenate([li["l_suppkey"].data[m], ps["ps_suppkey"].data])
+    v = np.concatenate([li["l_extendedprice"].data[m], ps["ps_supplycost"].data])
+    keys, inv = np.unique(k, return_inverse=True)
+    sums = _sums(inv, v, len(keys))
+    cnt = np.bincount(inv, minlength=len(keys))
+    order = np.lexsort((keys, -sums))
+    return [(int(keys[i]), int(cnt[i]), int(sums[i]) / 100) for i in order]
+
+
+def _early_custs(cat, d: str = "1995-01-01"):
+    o = _cols(cat, "orders")
+    return np.unique(o["o_custkey"].data[o["o_orderdate"].data < _days(d)])
+
+
+def numpy_u2(cat, acctbal: int = 900000):
+    c = _cols(cat, "customer")
+    rich = c["c_custkey"].data[c["c_acctbal"].data > acctbal]
+    return [(len(np.union1d(_early_custs(cat), rich)),)]
+
+
+def numpy_u3(cat, segment: str = "BUILDING"):
+    c = _cols(cat, "customer")
+    seg = c["c_custkey"].data[c["c_mktsegment"].data == _code(c["c_mktsegment"], segment)]
+    return [(len(np.setdiff1d(_early_custs(cat), seg)),)]
+
+
+#: the chip run's window and set-operation reports over TPC-H, with the
+#: table whose rows each one's rows/s counts
+REPORT_QUERIES: Dict[str, TpchQuery] = {
+    "w1": TpchQuery(W1_SQL, numpy_w1),
+    "w2": TpchQuery(W2_SQL, numpy_w2, (0,)),
+    "w3": TpchQuery(W3_SQL, numpy_w3),
+    "w4": TpchQuery(W4_SQL, numpy_w4, (3, 0), 10),
+    "w5": TpchQuery(W5_SQL, numpy_w5, (0,)),
+    "u1": TpchQuery(U1_SQL, numpy_u1, (2, 0), 10),
+    "u2": TpchQuery(U2_SQL, numpy_u2),
+    "u3": TpchQuery(U3_SQL, numpy_u3),
+}
+REPORT_BASE_TABLE = {"w1": "orders", "w2": "orders", "w3": "orders", "w4": "lineitem",
+                     "w5": "orders", "u1": "lineitem", "u2": "orders", "u3": "orders"}
+
+
+def numpy_q95(cat, db: str = "test"):
+    """TPC-DS Q95 over ``tpcds.load_tpcds`` data, vectorized: the same
+    answer as the JAX package's row-by-row oracle, (order_count,
+    total_shipping_cost, total_net_profit) with the sums rounded to
+    cents, or (0, None, None)."""
+
+    def col(table, name):
+        (b,) = cat.table(db, table).blocks()
+        return b.columns[name]
+
+    order = col("web_sales", "ws_order_number").data.astype(np.int64)
+    wh = col("web_sales", "ws_warehouse_sk").data.astype(np.int64)
+    n_keys = int(order.max(initial=0)) + 1
+    # ws_wh: orders shipping from more than one warehouse
+    pairs = np.unique(order * (int(wh.max(initial=0)) + 1) + wh)
+    per_order = np.bincount(pairs // (int(wh.max(initial=0)) + 1), minlength=n_keys)
+    multi = per_order > 1
+    wr = col("web_returns", "wr_order_number").data.astype(np.int64)
+    returned = np.zeros(n_keys, dtype=bool)
+    returned[wr[(wr >= 0) & (wr < n_keys)]] = True
+
+    def keys_where(table, key, mask):
+        return col(table, key).data.astype(np.int64)[mask]
+
+    d_date = col("date_dim", "d_date").data.astype(np.int64)
+    lo = int(date_to_days("1999-02-01"))
+    ok_dates = keys_where("date_dim", "d_date_sk", (d_date >= lo) & (d_date <= lo + 60))
+    state = col("customer_address", "ca_state")
+    il = keys_where("customer_address", "ca_address_sk", state.data == _code(state, "IL"))
+    company = col("web_site", "web_company_name")
+    pri = keys_where("web_site", "web_site_sk", company.data == _code(company, "pri"))
+
+    mask = (
+        np.isin(col("web_sales", "ws_ship_date_sk").data, ok_dates)
+        & np.isin(col("web_sales", "ws_ship_addr_sk").data, il)
+        & np.isin(col("web_sales", "ws_web_site_sk").data, pri)
+        & multi[order] & returned[order]
+    )
+    if not mask.any():
+        return (0, None, None)
+    cost = col("web_sales", "ws_ext_ship_cost").data.astype(np.int64)
+    profit = col("web_sales", "ws_net_profit").data.astype(np.int64)
+    return (
+        len(np.unique(order[mask])),
+        round(float(cost[mask].sum()) / 100, 2),
+        round(float(profit[mask].sum()) / 100, 2),
+    )
 
 
 def same_value(a, b, rel: float = 1e-12) -> bool:

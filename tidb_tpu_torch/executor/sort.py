@@ -38,16 +38,22 @@ def _directional_operands(batch: Batch, key_fns, descs) -> List[torch.Tensor]:
     return ops
 
 
-def sort_permutation(batch: Batch, key_fns, descs) -> torch.Tensor:
-    """Row permutation that sorts the batch: stable passes from the last
-    operand to the first."""
-    perm = torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
-    for op in reversed(_directional_operands(batch, key_fns, descs)):
+def lex_permutation(operands: List[torch.Tensor]) -> torch.Tensor:
+    """The permutation ``jax.lax.sort(operands, num_keys=len(operands))``
+    gives, ties kept in row order: stable passes from the last operand to
+    the first."""
+    perm = torch.arange(operands[0].shape[0], dtype=torch.int64, device=operands[0].device)
+    for op in reversed(operands):
         if op.dtype == torch.bool:
             op = op.to(torch.uint8)
         _vals, idx = torch.sort(op[perm], stable=True)
         perm = perm[idx]
     return perm
+
+
+def sort_permutation(batch: Batch, key_fns, descs) -> torch.Tensor:
+    """Row permutation that sorts the batch."""
+    return lex_permutation(_directional_operands(batch, key_fns, descs))
 
 
 def order_by(batch: Batch, key_fns, descs) -> Batch:

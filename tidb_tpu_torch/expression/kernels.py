@@ -7,9 +7,9 @@ lowers to two of them), three-valued AND/OR/NOT, IS [NOT] NULL, date
 compares against folded constants, dictionary-coded string columns
 compared with literals or with each other, [NOT] LIKE and IN (string
 predicates are one LUT over the dictionary, built once per compile), a
-numeric CASE, the EXTRACT family (YEAR ... DAYOFYEAR) and SUBSTRING as a
-dictionary transform. Any other function raises ``NotImplementedError``
-naming it.
+numeric CASE, the EXTRACT family (YEAR ... DAYOFYEAR), DATEDIFF and
+SUBSTRING as a dictionary transform. Any other function raises
+``NotImplementedError`` naming it.
 
 Null semantics are MySQL three-valued logic carried in validity masks.
 Strings are dictionary codes; each dictionary is sorted, so order
@@ -307,6 +307,15 @@ def _compile(e: Expr, dicts: DictContext) -> _CompiledExpr:
         return _compile_extract(e, dicts)
     if op == "substring":
         return string_expr(e, dicts)[0]
+    if op == "datediff":
+        fa, fb = (_compile(a, dicts) for a in e.args)
+        ta, tb = (a.type for a in e.args)
+
+        def _dd(b):
+            a, c = fa(b), fb(b)
+            return DevCol(_to_days(a.data, ta) - _to_days(c.data, tb), a.valid & c.valid)
+
+        return _dd
     raise NotImplementedError(f"function {op!r} is not ported yet")
 
 

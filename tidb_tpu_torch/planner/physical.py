@@ -13,11 +13,11 @@ earlier runs of the same plan, reads the cardinality scalars and the
 node overflowed its tile or a baked key width went stale. A warm run of
 TPC-H Q1 therefore makes one fetch.
 
-This slice compiles Scan, Selection (with fused HAVING), Projection,
-Aggregate, Join (cross, inner, left, semi, anti and mark), Sort and
-Limit on one device. Windows, unions, top-N, streamed/spilled
-execution, meshes and the plan-cache sharing of the JAX package belong
-to later slices and raise ``NotImplementedError``.
+This slice compiles Scan, OneRow, Selection (with fused HAVING),
+Projection, Aggregate, Join (cross, inner, left, semi, anti and mark),
+Window, Sort, Limit, top-N (ORDER BY ... LIMIT) and UnionAll on one
+device. Streamed/spilled execution, meshes and the plan-cache sharing of
+the JAX package belong to later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ from tidb_tpu_torch.executor.join import equi_join, lookup_build_rows
 from tidb_tpu_torch.executor.project import compact, filter_batch
 from tidb_tpu_torch.executor.sort import limit as limit_op
 from tidb_tpu_torch.executor.sort import order_by
+from tidb_tpu_torch.executor.window import WindowDesc, window_op
 from tidb_tpu_torch.expression.expr import ColumnRef, Expr
-from tidb_tpu_torch.expression.kernels import compile_expr
+from tidb_tpu_torch.expression.kernels import _DeviceLUT, compile_expr
 from tidb_tpu_torch.planner import logical as L
 from tidb_tpu_torch.storage.scan import scan_table
 
@@ -105,10 +106,28 @@ class _LazyBounds:
         return self.table.col_bounds(self.col, self.version)
 
 
+class _UnionBounds:
+    """Bounds of a UNION ALL output column: the hull of its branches'
+    bounds, resolved only if a consumer needs them. Every value of the
+    column comes from one branch, so the hull holds it; consumers verify
+    at run time, as with storage bounds."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, entries):
+        self.entries = entries
+
+    def get(self):
+        bs = [_resolve_bounds(e) for e in self.entries]
+        if any(b is None for b in bs):
+            return None
+        return (min(int(b[0]) for b in bs), max(int(b[1]) for b in bs))
+
+
 def _resolve_bounds(entry):
     if entry is None:
         return None
-    if isinstance(entry, _LazyBounds):
+    if isinstance(entry, (_LazyBounds, _UnionBounds)):
         return entry.get()
     return entry
 
@@ -144,6 +163,9 @@ class CompiledQuery:
     # capacity vector learned by the last run (plus the output tile
     # under _OUT_NODE)
     caps: Optional[Dict[int, int]] = None
+    # per ORDER BY ... LIMIT node, in build order: ("packed", total key
+    # bits) or ("sorted", None)
+    topn: List[Tuple[str, Optional[int]]] = dataclasses.field(default_factory=list)
 
 
 def plan_fingerprint(plan: L.LogicalPlan) -> str:
@@ -171,6 +193,10 @@ def plan_fingerprint(plan: L.LogicalPlan) -> str:
             )
         elif isinstance(p, L.Sort):
             parts.append(repr(p.keys))
+        elif isinstance(p, L.Window):
+            parts.append(
+                repr(p.partition_exprs) + repr(p.order_exprs) + repr(p.descs)
+            )
         elif isinstance(p, L.Limit):
             parts.append(f"{p.count},{p.offset}")
         kids = _plan_children(p)
@@ -341,9 +367,11 @@ class PlanCompiler:
     assumption (int-column bounds, NULL-free folding): the executor's
     stale-retry loop falls back to it when assumptions keep failing."""
 
-    def __init__(self, catalog, resolver=None, conservative: bool = False):
+    def __init__(self, catalog, resolver=None, conservative: bool = False, device=None):
         self.conservative = conservative
         self.catalog = catalog
+        # where plan nodes without a scan (OneRow) make their tiles
+        self.device = device
         self.resolver = resolver or (
             lambda db, tbl: (catalog.table(db, tbl), catalog.table(db, tbl).version)
         )
@@ -352,6 +380,7 @@ class PlanCompiler:
         self.defaults: Dict[int, int] = {}
         self.nonnull: List[Tuple[int, str]] = []
         self.bound_checks: List[Tuple[int, str, int, int]] = []
+        self.topn: List[Tuple[str, Optional[int]]] = []
 
     def fresh_id(self) -> int:
         self._next_id += 1
@@ -370,11 +399,23 @@ class PlanCompiler:
             out_dicts=out,
             nonnull=list(self.nonnull),
             bound_checks=list(self.bound_checks),
+            topn=list(self.topn),
         )
 
     def _build(self, plan: L.LogicalPlan):
         if isinstance(plan, L.Scan):
             return self._build_scan(plan)
+
+        if isinstance(plan, L.OneRow):
+            # a SELECT without FROM (a UNION branch): one valid row in a
+            # 256-row tile, no columns
+
+            def fn_one(inputs, caps):
+                rv = torch.zeros(256, dtype=torch.bool, device=self.device)
+                rv[0] = True
+                return Batch({}, rv), {}
+
+            return fn_one, {}
 
         if isinstance(plan, L.Selection):
             if (
@@ -444,9 +485,37 @@ class PlanCompiler:
 
             return fn_sort, dicts
 
+        if isinstance(plan, L.Window):
+            child, dicts = self._build(plan.child)
+            part_fns = [compile_expr(e, dicts) for e in plan.partition_exprs]
+            order_fns = [compile_expr(e, dicts) for e, _ in plan.order_exprs]
+            order_descs = [d for _, d in plan.order_exprs]
+            wdescs = []
+            out_dicts = dict(dicts)
+            for name, func, arg, offset, running, frame in plan.descs:
+                fn = compile_expr(arg, dicts) if arg is not None else None
+                scale = (
+                    arg.type.scale
+                    if arg is not None and arg.type.kind == Kind.DECIMAL
+                    else 0
+                )
+                wdescs.append(WindowDesc(func, fn, name, offset, scale, running, frame))
+                if func in ("lag", "lead", "min", "max") and arg is not None:
+                    # a string argument's codes carry over, and so does
+                    # its dictionary
+                    d = _expr_dict(arg, dicts)
+                    if d is not None:
+                        out_dicts[name] = d
+
+            def fn_win(inputs, caps):
+                b, needs = child(inputs, caps)
+                return window_op(b, part_fns, order_fns, order_descs, wdescs), needs
+
+            return fn_win, out_dicts
+
         if isinstance(plan, L.Limit):
-            # ORDER BY ... LIMIT runs as a full sort then the limit mask
-            # (the JAX package's packed top-k is a later slice)
+            if isinstance(plan.child, L.Sort) and plan.count is not None:
+                return self._build_topn(plan)
             child, dicts = self._build(plan.child)
             k, off = plan.count, plan.offset
 
@@ -457,6 +526,9 @@ class PlanCompiler:
                 return limit_op(b, k, off or 0), needs
 
             return fn_lim, dicts
+
+        if isinstance(plan, L.UnionAll):
+            return self._build_union(plan)
 
         raise NotImplementedError(
             f"{type(plan).__name__} plans are not ported to torch yet"
@@ -571,6 +643,154 @@ class PlanCompiler:
 
         return fn_agg, agg_out_dicts(plan, dicts)
 
+
+    def _topn_widths(self, keys, dicts):
+        """Per-key (bit width, bias) for the packed top-k encoding, or
+        None when the keys don't pack into <= 62 bits. Unlike the
+        aggregation widths, integer-typed keys WITHOUT bounds (e.g. SUM
+        outputs) get an assumed 40-bit width: verified at run time, and
+        dropped by the conservative recompile if values exceed it."""
+        out = []
+        total = 0
+        for e, _d in keys:
+            w = _key_width(e, dicts)
+            if w is None and not self.conservative:
+                kind = e.type.kind if e.type is not None else None
+                if kind in (Kind.INT, Kind.DECIMAL, Kind.DATETIME, Kind.TIME):
+                    w = (40, 1 << 39)  # covers |v| < 2^39
+            if w is None:
+                return None
+            total += w[0]
+            out.append(w)
+        return out if total <= 62 else None
+
+    def _build_topn(self, plan: L.Limit):
+        """ORDER BY ... LIMIT n without sorting the dataset.
+
+        Packed path: when every sort key packs into one int64 (dictionary
+        codes, dates, bounded or assumed-width integers; a DESC key keeps
+        its limb and an ASC key flips it, so a bigger packed value is an
+        earlier row, and MySQL's NULL order falls out of the 0 limb), the
+        first n + offset rows come from one top-k over the packed key.
+        ``lax.top_k`` in the JAX package returns equal values in row
+        order; ``torch.topk`` promises no order among them, so its k-th
+        value is only the threshold: every row above it is kept, the rows
+        equal to it fill the remaining places in row order, and the kept
+        rows are then sorted stably.
+
+        Sorted path (keys that do not pack, or n > 4096): a full sort and
+        the head tile."""
+        sort = plan.child
+        inner, dicts = self._build(sort.child)
+        key_fns = [compile_expr(e, dicts) for e, _ in sort.keys]
+        descs = [d for _, d in sort.keys]
+        n = plan.count + (plan.offset or 0)
+        k, off = plan.count, plan.offset or 0
+
+        widths = self._topn_widths(sort.keys, dicts) if n <= 4096 else None
+        if widths is not None:
+            total_bits = sum(w for w, _b in widths)
+            self.topn.append(("packed", total_bits))
+            snid = self.fresh_id()
+            self.defaults[snid] = 16
+
+            def pack(b):
+                packed = torch.zeros(b.capacity, dtype=torch.int64, device=b.device)
+                stale = torch.zeros((), dtype=torch.bool, device=b.device)
+                offb = total_bits
+                for (w, bias), f, d in zip(widths, key_fns, descs):
+                    offb -= w
+                    kcol = f(b)
+                    limb = kcol.data.to(torch.int64) + (bias + 1)
+                    limb = torch.where(kcol.valid, limb, torch.zeros_like(limb))
+                    bad = kcol.valid & ((limb < 1) | (limb > ((1 << w) - 1)))
+                    stale = stale | (b.row_valid & bad).any()
+                    enc = limb if d else ((1 << w) - 1) - limb
+                    packed = packed | (enc << offb)
+                # invalid rows sink below every real row (packed >= 0)
+                return torch.where(b.row_valid, packed, torch.full_like(packed, -1)), stale
+
+            def fn_topk(inputs, caps):
+                b, needs = inner(inputs, caps)
+                packed, stale = pack(b)
+                head = _top_rows(b, packed, min(n, b.capacity))
+                needs = dict(needs)
+                needs[snid] = torch.where(stale, _WIDTH_STALE, 0)
+                return limit_op(head, k, off), needs
+
+            return fn_topk, dicts
+
+        self.topn.append(("sorted", None))
+        tile = pad_capacity(max(n, 1), floor=32)
+
+        def fn_topn(inputs, caps):
+            b, needs = inner(inputs, caps)
+            b = order_by(b, key_fns, descs)
+            # the sorted order puts valid rows first, so a static head
+            # slice after masking rows past n is exact
+            keep = torch.cumsum(b.row_valid.to(torch.int32), 0) <= n
+            t = min(tile, b.capacity)
+            head = Batch(
+                {nm: DevCol(c.data[:t], c.valid[:t] & keep[:t]) for nm, c in b.cols.items()},
+                b.row_valid[:t] & keep[:t],
+            )
+            return limit_op(head, k, off), needs
+
+        return fn_topn, dicts
+
+    def _build_union(self, plan: L.UnionAll):
+        """Bag union by position: the children's tiles one after another
+        (the output tile is the sum of theirs). Each string column gets
+        the merged dictionary of its branches and one code LUT per
+        branch; an integer column whose branches all carry bounds gets
+        their hull."""
+        built = [self._build(c) for c in plan.children]
+        fns = [f for f, _ in built]
+        child_dicts = [d for _, d in built]
+        internals = [c.internal for c in plan.schema.cols]
+        types = {c.internal: c.type for c in plan.schema.cols}
+        out_dicts: Dicts = {}
+        luts: Dict[str, List[_DeviceLUT]] = {}
+        for name in internals:
+            if types[name].kind != Kind.STRING:
+                bs = [cd.get(_BOUNDS_PREFIX + name) for cd in child_dicts]
+                if all(b is not None for b in bs):
+                    out_dicts[_BOUNDS_PREFIX + name] = _UnionBounds(bs)
+                continue
+            ds = [cd.get(name) for cd in child_dicts]
+            merged = np.array(
+                sorted({s for d in ds if d is not None for s in d.tolist()}),
+                dtype=object,
+            )
+            out_dicts[name] = merged
+            luts[name] = [
+                _DeviceLUT(
+                    np.searchsorted(merged, d).astype(np.int32)
+                    if d is not None and len(d)
+                    else np.zeros(1, np.int32)
+                )
+                for d in ds
+            ]
+
+        def fn_union(inputs, caps):
+            needs: Dict[int, torch.Tensor] = {}
+            batches = []
+            for f in fns:
+                b, nd = f(inputs, caps)
+                needs.update(nd)
+                batches.append(b)
+            cols = {}
+            for name in internals:
+                datas, valids = [], []
+                for ci, b in enumerate(batches):
+                    c = b.cols[name]
+                    datas.append(luts[name][ci](c.data) if name in luts else c.data)
+                    valids.append(c.valid)
+                cols[name] = DevCol(torch.cat(datas), torch.cat(valids))
+            rv = torch.cat([b.row_valid for b in batches])
+            return Batch(cols, rv), needs
+
+        return fn_union, out_dicts
 
     def _stale_sentinel_node(self, props) -> Optional[int]:
         """Semi/anti/mark joins have no output-capacity knob, so a dense
@@ -873,6 +1093,8 @@ class PhysicalExecutor:
         self.catalog = catalog
         self.device = resolve_device(device)
         self._cache: "OrderedDict[tuple, CompiledQuery]" = OrderedDict()
+        # the compiled plan of the last statement run (its top-N paths)
+        self.last_compiled: Optional[CompiledQuery] = None
 
     def _resolve(self, db: str, table: str):
         t = self.catalog.table(db, table)
@@ -905,7 +1127,8 @@ class PhysicalExecutor:
             cq = None if conservative else self._cache.get(key)
             if cq is None:
                 cq = PlanCompiler(
-                    self.catalog, resolver=self._resolve, conservative=conservative
+                    self.catalog, resolver=self._resolve, conservative=conservative,
+                    device=self.device,
                 ).compile(plan)
                 while len(self._cache) >= 256:
                     self._cache.popitem(last=False)
@@ -913,7 +1136,9 @@ class PhysicalExecutor:
             else:
                 self._cache.move_to_end(key)
             try:
-                return self._run_compiled(cq, names), cq.out_dicts
+                out = self._run_compiled(cq, names), cq.out_dicts
+                self.last_compiled = cq
+                return out
             except StaleWidthsError:
                 self._cache.pop(key, None)
         raise ExecError("packed key widths did not stabilize after recompiles")
@@ -991,6 +1216,31 @@ class PhysicalExecutor:
 # ---------------------------------------------------------------------------
 # shared helpers (also used by PlanCompiler)
 # ---------------------------------------------------------------------------
+
+
+def _top_rows(b: Batch, packed: torch.Tensor, kk: int) -> Batch:
+    """The `kk` rows of largest `packed` value, in descending order, equal
+    values in row order (``lax.top_k``'s order): the k-th value from
+    ``torch.topk`` is a threshold; the rows above it and the first rows
+    equal to it (a running count) are compacted in row order and sorted
+    stably."""
+    if kk == 0:
+        return Batch({nm: DevCol(c.data[:0], c.valid[:0]) for nm, c in b.cols.items()},
+                     b.row_valid[:0])
+    thr = torch.topk(packed, kk, sorted=False).values.min()
+    above = packed > thr
+    eq = packed == thr
+    room = kk - above.sum()
+    keep = above | (eq & (torch.cumsum(eq.to(torch.int64), 0) <= room))
+    # exactly kk rows are kept; reserved names start with NUL, as no
+    # column's does
+    sel = compact({**b.cols, "\x00p": DevCol(packed, keep), "\x00rv": DevCol(b.row_valid, keep)},
+                  keep, kk)
+    p = sel.cols.pop("\x00p").data
+    rv = sel.cols.pop("\x00rv").data
+    order = torch.sort(p, descending=True, stable=True).indices
+    cols = {nm: DevCol(c.data[order], c.valid[order]) for nm, c in sel.cols.items()}
+    return Batch(cols, rv[order])
 
 
 def _bound_pred_cols(e):

@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py                  # TPC-H SF10, as the port is measured
+    python3 chip_smoke.py                  # TPC-H SF10 and SF100, as the port is measured
     python3 chip_smoke.py --profile out/   # plus a torch.profiler pass
-    python3 chip_smoke.py --kernels        # phases 1-3 and 6 only, on
+    python3 chip_smoke.py --kernels        # phases 1-3 and 7 only, on
                                            # synthesized main-path inputs
+    python3 chip_smoke.py --spill-only     # phases 1-3 and 8 only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -26,22 +27,34 @@
    load_tpcds(seed=1) (7.2M web_sales rows, no ANALYZE, as bench.py runs
    it) and runs TPC-DS Q95: each cold once and warm three times, each run
    checked against its oracle. Each ORDER BY ... LIMIT prints the top-N
-   path it took (packed key and its width, or sorted).
-   Phases 5 and 6 each show that every kernel launched there: launch
-   counts are zeroed just before a phase's runs and read just after them.
+   path it took (packed key and its width, or sorted). No statement of
+   phases 5 and 6 streams: SF10's tables fit one tile.
 7. Times each kernel, its plain version and the one-call PyTorch equivalent
-   on the inputs the main path gave it, and prints them beside the least
+   on the inputs phases 5 and 6 gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
    over 3.35 TB/s and their adds over 67 Top/s. Beside the time of a call
    (host work included, CUDA events around a loop of calls) stands the
    device time of its kernels alone (torch.profiler) and their launches
    per call.
+8. Spill: frees the SF10 and TPC-DS tables and their device columns, then
+   generates orders, lineitem and customer at TPC-H SF100 (BASELINE config
+   #4: 600M lineitem rows, no cut of scale; only the columns Q1 and Q18
+   read are kept, each equal to the full table's), ANALYZEs them, and runs
+   TPC-H Q18 (quantity 300) and Q1: each cold once and warm three times,
+   each run checked against the numpy oracles. Both exceed the port's
+   one-tile limit, so the executor's sizing streams them
+   (planner/streamed.py); each statement prints its streamed record
+   (mode, chunks, partial rows, the final merge and its parts), its
+   resident bytes after every run, and its host->device bytes and
+   device->host fetches per warm run.
+   Phases 5, 6 and 8 each show that every kernel launched there: launch
+   counts are zeroed just before a phase's runs and read just after them.
 
-With --kernels, phases 4-6 are skipped: phase 7 runs on inputs shaped as
-the main path's (TPC-H Q1's slot_sums lanes at SF10, the l_suppkey
-GROUP BY's prefix_sum), made from a seed, and prints its rows as
-"kernel_times" with no launch counts, since no main path ran. That run
-prints no last line.
+With --kernels, phases 4-6 and 8 are skipped: phase 7 runs on inputs
+shaped as the main path's (TPC-H Q1's slot_sums lanes at SF10, the
+l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
+"kernel_times" with no launch counts, since no main path ran. With
+--spill-only, phases 4-7 are skipped. Neither prints the last line.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -49,6 +62,7 @@ Any failure raises; the last line is printed only when every phase passed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -264,10 +278,24 @@ def raw_columns(cat, names):
     return {n: b.columns[n].data for n in names}, t
 
 
-def check_q1(res, blk, t):
+def q1_check(blk, t):
+    """A check of Q1's rows against numpy_q1, computed on first use and
+    kept for the query's later runs."""
     from tidb_tpu_torch.bench.oracles import numpy_q1
 
-    o = numpy_q1(blk)
+    oracle = []
+
+    def check(res):
+        if not oracle:
+            t0 = time.perf_counter()
+            oracle.append(numpy_q1(blk))
+            log(f"  oracle: Q1 in {time.perf_counter() - t0:.1f}s")
+        check_q1(res, oracle[0], t)
+
+    return check
+
+
+def check_q1(res, o, t):
     rf, ls = t.dictionaries["l_returnflag"], t.dictionaries["l_linestatus"]
     want = []
     for k in range(6):
@@ -278,7 +306,13 @@ def check_q1(res, blk, t):
     for row, (_a, _b, k) in zip(res.rows, want):
         assert row[2] == o["sum_qty"][k] / 100, (row, k)
         assert row[3] == o["sum_base"][k] / 100, (row, k)
-        assert row[4] == o["sum_disc"][k] / 10**4, (row, k)
+        # the engine sums this scale-4 product in two int64 limbs and
+        # returns a float64 (as the JAX package does): exact while the
+        # sum is below 2^53, the float gate's 1e-12 relative above (SF100)
+        if abs(int(o["sum_disc"][k])) < 1 << 53:
+            assert row[4] == o["sum_disc"][k] / 10**4, (row, k)
+        else:
+            assert np.isclose(row[4], o["sum_disc"][k] / 10**4, rtol=1e-12, atol=0), (row, k)
         assert np.isclose(row[5], o["sum_charge"][k] / 10**6, rtol=1e-12, atol=0), (row, k)
         assert np.isclose(row[6], o["avg_qty"][k] / 100, rtol=1e-12, atol=0), (row, k)
         assert np.isclose(row[7], o["avg_base"][k] / 100, rtol=1e-12, atol=0), (row, k)
@@ -423,7 +457,8 @@ def synthetic_inputs():
 
 def kernel_rows(seen, launches):
     """Check and time each kernel on the input the main path gave it;
-    `launches` holds the main path's launch counts (None: it did not run)."""
+    `launches` holds the main path's launch counts (None: the caller
+    fills them in, or no main path ran)."""
     import torch
 
     from tidb_tpu_torch.executor import kernels as K
@@ -539,14 +574,16 @@ def run_phase(queries, report, base_table, before=None) -> dict:
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         check(res)
+        after = [torch.cuda.memory_allocated()]
         warm = []
-        f0 = TRANSFERS["d2h_fetches"]
+        f0, h0 = TRANSFERS["d2h_fetches"], TRANSFERS["h2d_bytes"]
         for _ in range(3):
             t0 = time.perf_counter()
             res = qs.execute(sql)
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
             check(res)
+            after.append(torch.cuda.memory_allocated())
         table = base_table(name)
         report[name] = {
             "rows": len(res.rows),
@@ -558,7 +595,12 @@ def run_phase(queries, report, base_table, before=None) -> dict:
             # columns of earlier queries and the kernel inputs kept for phase 7
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "resident_before": resident,
+            # allocated after the cold run and after each warm run
+            "resident_after": after,
             "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / 3,
+            "h2d_bytes_per_warm_run": (TRANSFERS["h2d_bytes"] - h0) / 3,
+            # the last run's record of each aggregate it streamed
+            "stream": qs.executor.stream_log,
             "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES},
             # each ORDER BY ... LIMIT of the statement: ["packed", key bits]
             # or ["sorted", null]
@@ -568,58 +610,50 @@ def run_phase(queries, report, base_table, before=None) -> dict:
     return dict(K.LAUNCHES)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", metavar="DIR",
-                    help="also trace one warm run of each query with torch.profiler "
-                         "and write each trace's table to DIR/profile_<query>.txt")
-    ap.add_argument("--kernels", action="store_true",
-                    help="build, check and time the kernels on synthesized main-path "
-                         "inputs only: no data generation, no queries, no last line")
-    args = ap.parse_args()
+#: TPC-H scale factor of the spill phase: BASELINE config #4's SF100, no cut
+SPILL_SF = 100.0
+#: the columns Q1 and Q18 read of the spill phase's tables: the full
+#: tables would take about 75 GB of host RAM (lineitem alone 116 bytes a
+#: row), the kept columns about 41 GB
+SPILL_COLUMNS = {
+    "orders": ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"],
+    "lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                 "l_returnflag", "l_linestatus", "l_shipdate"],
+    "customer": ["c_custkey"],
+}
 
+
+def host_memory() -> str:
+    """MemAvailable and this process's peak resident set, in GB."""
+    import resource
+
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return f"MemAvailable {avail / 1e9:.1f} GB, peak RSS {peak / 1e9:.1f} GB"
+
+
+def sf10_phases(args, seen, report) -> dict:
+    """Phases 4-6: TPC-H at SF10, the reports and TPC-DS Q95, recording
+    the largest input each kernel gets in `seen`. Returns the launches of
+    each phase. The tables and sessions are dropped when it returns."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from tidb_tpu_torch import _build
     from tidb_tpu_torch.bench import load_tpch
     from tidb_tpu_torch.bench.oracles import (
         Q1_SQL, Q3_SQL, Q5_SQL, Q6_SQL, REPORT_BASE_TABLE, REPORT_QUERIES, SUPPKEY_SQL,
         TPCH_QUERIES, spec_params,
     )
     from tidb_tpu_torch.bench.tpcds import Q95_SQL, load_tpcds
-    from tidb_tpu_torch.chunk import TRANSFERS, reset_transfers
     from tidb_tpu_torch.executor import aggregate as A
     from tidb_tpu_torch.executor import kernels as K
     from tidb_tpu_torch.session import Session
     from tidb_tpu_torch.storage import Catalog
 
-    card = card_line()
-    log(f"card: {card}")
-    if SF != 10.0:
-        log(f"scale cut: SF{SF:g} instead of SF10")
-
-    # --- 1. build ---
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
-    for name, (secs, out) in built.items():
-        took = "already built" if secs is None else f"{secs:.1f}s"
-        log(f"--- nvcc {name}.cu ({took})\n{out.strip()}")
-
-    # --- 2. kernels vs plain at edge shapes ---
-    big_n = int(6_000_000 * SF)
-    kernel_edge_checks(big_n)
-
-    if args.kernels:
-        log("kernels only: phases 4-6 skipped, inputs synthesized")
-        log(json.dumps({"kernel_times": kernel_rows(synthetic_inputs(), None)}))
-        log(card)
-        return 0
-
-    # --- 3. data ---
+    # --- 4. data ---
     t0 = time.perf_counter()
     cat = Catalog()
     load_tpch(cat, sf=SF, seed=1, tables=TABLES)
@@ -631,9 +665,7 @@ def main() -> int:
         f"{t} {cat.table('tpch', t).nrows}" for t in TABLES
     ) + f" rows in {time.perf_counter() - t0:.1f}s")
 
-    # record the largest input each kernel gets on the main path
-    seen = {}
-
+    # record the largest input each kernel gets on these phases' path
     def recording(name, fn, size):
         def wrapped(*a):
             if name not in seen or size(*a) > size(*seen[name]):
@@ -645,10 +677,9 @@ def main() -> int:
     A.slot_sums = recording("slot_sums", K.slot_sums, lambda v, c, s, n: v.numel())
     A.prefix_sum = recording("prefix_sum", K.prefix_sum, lambda x: x.numel())
 
-    # --- 4. main path: TPC-H ---
-    reset_transfers()
+    # --- 5. main path: TPC-H ---
     sess = Session(cat, db="tpch")
-    queries = [("q1", Q1_SQL, lambda r: check_q1(r, blk, li)),
+    queries = [("q1", Q1_SQL, q1_check(blk, li)),
                ("q6", Q6_SQL, lambda r: check_q6(r, blk)),
                ("l_suppkey", SUPPKEY_SQL, lambda r: check_suppkey(r, blk)),
                ("q3", Q3_SQL, lambda r: check_q3(r, cat)),
@@ -657,7 +688,6 @@ def main() -> int:
         params = spec_params(name, SF)
         queries.append((name, q.sql.format(**params), oracle_check(cat, q, params)))
     queries = [(name, sql, check, sess) for name, sql, check in queries]
-    report = {}
 
     def analyze_first(name):
         if name == "q3":
@@ -670,7 +700,7 @@ def main() -> int:
     launches = {"tpch": run_phase(queries, report, lambda n: cat.table(
         "tpch", BASE_TABLE.get(n, "lineitem")), before=analyze_first)}
 
-    # --- 5. main path: window and set-operation reports, TPC-DS Q95 ---
+    # --- 6. main path: window and set-operation reports, TPC-DS Q95 ---
     t0 = time.perf_counter()
     ds = Catalog()
     load_tpcds(ds, sf=TPCDS_SF, seed=1)
@@ -687,20 +717,149 @@ def main() -> int:
         return cat.table("tpch", REPORT_BASE_TABLE[name])
 
     launches["reports_q95"] = run_phase(slice6, report, base6)
-    totals = {k: sum(ph[k] for ph in launches.values()) for k in K.LAUNCHES}
+    A.slot_sums, A.prefix_sum = K.slot_sums, K.prefix_sum
+    streamed = [n for n, _s, _c, _q in queries + slice6 if report[n]["stream"]]
+    assert not streamed, f"SF10/TPC-DS statements streamed: {streamed}"
+
+    if args.profile:
+        for name, sql, _check, qs in queries + slice6:
+            profile_query(qs, name, sql, args.profile)
+    return launches
+
+
+def spill_phase(args, report) -> dict:
+    """Phase 8: TPC-H Q18 and Q1 at SF100 through the streamed path.
+    Returns the phase's launches."""
+    import torch
+
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.bench.oracles import Q1_SQL, TPCH_QUERIES, spec_params
+    from tidb_tpu_torch.chunk import TRANSFERS
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    tables = list(SPILL_COLUMNS)
+    log(f"spill: before datagen, {host_memory()}, device allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SPILL_SF, seed=1, tables=tables, columns=SPILL_COLUMNS)
+    log(f"datagen: SF{SPILL_SF:g}, " + ", ".join(
+        f"{t} {cat.table('tpch', t).nrows}" for t in tables
+    ) + f" rows ({sum(len(c) for c in SPILL_COLUMNS.values())} columns) in "
+        f"{time.perf_counter() - t0:.1f}s; {host_memory()}")
+    sess = Session(cat, db="tpch")
+    t0 = time.perf_counter()
+    for t in tables:
+        sess.execute(f"analyze table {t}")
+    torch.cuda.synchronize()
+    log(f"analyze: {len(tables)} tables in {time.perf_counter() - t0:.1f}s")
+    blk, li = raw_columns(cat, SPILL_COLUMNS["lineitem"])
+    q18 = TPCH_QUERIES["q18"]
+    params = spec_params("q18", SPILL_SF)
+    queries = [("q18_sf100", q18.sql.format(**params), oracle_check(cat, q18, params), sess),
+               ("q1_sf100", Q1_SQL, q1_check(blk, li), sess)]
+    h0 = TRANSFERS["h2d_bytes"]
+    launches = run_phase(queries, report, lambda n: li)
+    for name, _sql, _c, _s in queries:
+        r = report[name]
+        recs = r["stream"]
+        log(f"stream {name}: {json.dumps(recs)}")
+        assert recs and all(x["chunks"] > 1 for x in recs), f"{name} did not stream"
+        gb = [round(b / 1e9, 3) for b in r["resident_after"]]
+        log(f"{name}: warm s {r['warm_s']}, cold s {r['cold_s']:.3f}, rows/s "
+            f"{r['rows_per_s']:.4g}, peak {r['max_memory_allocated'] / 1e9:.2f} GB, resident "
+            f"{r['resident_before'] / 1e9:.2f} GB before and {gb} GB after each run, "
+            f"h2d {r['h2d_bytes_per_warm_run']:.4g} B and d2h fetches "
+            f"{r['d2h_fetches_per_warm_run']:.4g} per warm run")
+        # no run leaves its staged batch or partials behind
+        assert r["resident_after"][3] <= r["resident_after"][1] + (256 << 20), gb
+    log(f"spill: h2d {TRANSFERS['h2d_bytes'] - h0} B over the phase; {host_memory()}")
+    if args.profile:
+        for name, sql, _check, qs in queries:
+            profile_query(qs, name, sql, args.profile)
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", metavar="DIR",
+                    help="also trace one warm run of each query with torch.profiler and "
+                         "write each trace's table to DIR/profile_<query>.txt")
+    ap.add_argument("--kernels", action="store_true",
+                    help="build, check and time the kernels on synthesized main-path "
+                         "inputs only: no data generation, no queries, no last line")
+    ap.add_argument("--spill-only", action="store_true",
+                    help="build and check the kernels and run the SF100 spill phase only: "
+                         "no last line")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from tidb_tpu_torch import _build
+    from tidb_tpu_torch.chunk import TRANSFERS, reset_transfers
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.storage import scan
+
+    card = card_line()
+    log(f"card: {card}")
+    if SF != 10.0 or SPILL_SF != 100.0:
+        log(f"scale cut: SF{SF:g} and SF{SPILL_SF:g} instead of SF10 and SF100")
+
+    # --- 1. build ---
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    for name, (secs, out) in built.items():
+        took = "already built" if secs is None else f"{secs:.1f}s"
+        log(f"--- nvcc {name}.cu ({took})\n{out.strip()}")
+
+    # --- 2. kernels vs plain at edge shapes ---
+    big_n = int(6_000_000 * SF)
+    kernel_edge_checks(big_n)
+
+    if args.kernels:
+        log("kernels only: phases 4-6 and 8 skipped, inputs synthesized")
+        log(json.dumps({"kernel_times": kernel_rows(synthetic_inputs(), None)}))
+        log(card)
+        return 0
+
+    reset_transfers()
+    report = {}
+    launches = {}
+    kernels = None
+    if not args.spill_only:
+        seen = {}
+        launches.update(sf10_phases(args, seen, report))
+        # --- 7. kernels on the main path's inputs: check and time ---
+        kernels = kernel_rows(seen, None)
+        seen.clear()
+
+    # --- 8. spill: TPC-H SF100 ---
+    # the SF10 sessions' compiled plans and their executors refer to each
+    # other: collect them now, with the tables they hold
+    gc.collect()
+    freed = scan.release()
+    torch.cuda.empty_cache()
+    log(f"spill: released {freed} B of cached device columns, device allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    launches["spill_sf100"] = spill_phase(args, report)
     log(f"main path: launches by phase {launches}, h2d_bytes {TRANSFERS['h2d_bytes']}, "
         f"d2h_bytes {TRANSFERS['d2h_bytes']}, d2h_fetches {TRANSFERS['d2h_fetches']}")
     for phase, counts in launches.items():
         for k, n in counts.items():
             assert n > 0, f"kernel {k} was not launched on the main path's {phase} phase"
-
-    if args.profile:
-        for name, sql, _check, qs in queries + slice6:
-            profile_query(qs, name, sql, args.profile)
-
-    # --- 6. kernels on the main path's inputs: check and time ---
-    kernels = kernel_rows(seen, totals)
     log(json.dumps({"queries": report}))
+    if kernels is None:
+        log("spill only: phases 4-7 skipped")
+        log(card)
+        return 0
+    totals = {k: sum(ph[k] for ph in launches.values()) for k in K.LAUNCHES}
+    for row in kernels:
+        row["launches"] = totals[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ needs. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 
 Ported so far: ``Session.execute`` for a SELECT with WHERE, joins,
-GROUP BY, aggregates and ORDER BY, and ANALYZE TABLE (TPC-H Q1, Q3, Q5
-and Q6).
+GROUP BY, aggregates, windows, set operations and ORDER BY/LIMIT (all 22
+TPC-H queries, TPC-DS Q95), ANALYZE TABLE, and streamed (spill)
+aggregation for inputs past one device tile (TPC-H SF100).
 """
 
 __version__ = "0.1.0"

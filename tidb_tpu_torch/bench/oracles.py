@@ -1,7 +1,8 @@
 """Plain numpy answers to the port's queries over the raw columns of
-``load_tpch`` data: the port's copies of ``numpy_q1``/``numpy_q6``/
-``numpy_q5`` from the repo's bench.py, a ``np.bincount`` oracle for the
-l_suppkey aggregation, a vectorized ``numpy_q3``, and ``TPCH_QUERIES``:
+``load_tpch`` data: the port's copies of ``numpy_q6``/``numpy_q5`` from
+the repo's bench.py, ``numpy_q1`` (exact and a few seconds per 100M rows,
+for TPC-H SF100), a ``np.bincount`` oracle for the l_suppkey
+aggregation, a vectorized ``numpy_q3``, and ``TPCH_QUERIES``:
 the other 18 TPC-H queries of tests/test_tpch_sql.py, each with its SQL
 text and a vectorized oracle, checked by ``check_rows``;
 ``REPORT_QUERIES``, window and set-operation reports over the TPC-H
@@ -75,31 +76,61 @@ Q5_D0 = int(date_to_days("1994-01-01"))
 Q5_D1 = int(date_to_days("1995-01-01"))
 
 
+def exact_bincount(key: np.ndarray, weights: np.ndarray, n: int) -> np.ndarray:
+    """Exact int64 sums of integer `weights` per key in [0, n): float64
+    ``np.bincount`` over row slices short enough that every partial sum
+    stays an integer below 2^53, added up in int64 (``np.add.at`` is
+    exact too, but slow at TPC-H SF100's 600M rows)."""
+    out = np.zeros(n, dtype=np.int64)
+    if len(key) == 0:
+        return out
+    top = max(abs(int(weights.max())), abs(int(weights.min())), 1)
+    step = max(1, (1 << 53) // top)
+    for a in range(0, len(key), step):
+        out += np.bincount(key[a:a + step], weights=weights[a:a + step], minlength=n).astype(np.int64)
+    return out
+
+
+#: rows numpy_q1 takes at a time: its temporaries stay small (at SF100 a
+#: whole-table pass would hold tens of GB) and the allocator reuses them
+#: instead of faulting in fresh pages
+Q1_ROWS_PER_PASS = 1 << 18
+
+
 def numpy_q1(blk, cutoff: int = Q1_CUTOFF):
     """Per (returnflag code * 2 + linestatus code) group: exact scaled
-    sums, counts and float averages."""
-    m = blk["l_shipdate"] <= cutoff
-    key = blk["l_returnflag"][m].astype(np.int64) * 2 + blk["l_linestatus"][m]
+    sums, counts and float averages. The discount and tax take a few
+    values each, so one count and one price sum per (group, discount,
+    tax) give every price-derived sum as exact int64 arithmetic on those
+    totals, taken ``Q1_ROWS_PER_PASS`` rows at a time."""
     nk = 6
-    qty = blk["l_quantity"][m]
-    price = blk["l_extendedprice"][m]
-    disc = blk["l_discount"][m]
-    tax = blk["l_tax"][m]
-    disc_price = price * (100 - disc)
-    charge = disc_price * (100 + tax)
-
-    def exact(v):  # int64 group sums without a float64 round trip
-        out = np.zeros(nk, dtype=np.int64)
-        np.add.at(out, key, v)
-        return out
-
+    nd = int(blk["l_discount"].max(initial=0)) + 1
+    nt = int(blk["l_tax"].max(initial=0)) + 1
+    assert blk["l_discount"].min(initial=0) >= 0 and blk["l_tax"].min(initial=0) >= 0
+    cells = nk * nd * nt
+    cnt3 = np.zeros(cells + 1, dtype=np.int64)
+    price3 = np.zeros(cells + 1, dtype=np.int64)
+    qty = np.zeros(nk + 1, dtype=np.int64)
+    for a in range(0, len(blk["l_shipdate"]), Q1_ROWS_PER_PASS):
+        z = a + Q1_ROWS_PER_PASS
+        g = blk["l_returnflag"][a:z].astype(np.int64) * 2 + blk["l_linestatus"][a:z]
+        # rows the WHERE drops count in an extra cell, left out below
+        keep = blk["l_shipdate"][a:z] <= cutoff
+        cell = np.where(keep, (g * nd + blk["l_discount"][a:z]) * nt + blk["l_tax"][a:z], cells)
+        cnt3 += np.bincount(cell, minlength=cells + 1)
+        price3 += exact_bincount(cell, blk["l_extendedprice"][a:z], cells + 1)
+        qty += exact_bincount(np.where(keep, g, nk), blk["l_quantity"][a:z], nk + 1)
+    c = cnt3[:cells].reshape(nk, nd, nt)
+    p = price3[:cells].reshape(nk, nd, nt)
+    d = np.arange(nd, dtype=np.int64)[None, :, None]
+    t = np.arange(nt, dtype=np.int64)[None, None, :]
     out = {
-        "sum_qty": exact(qty),
-        "sum_base": exact(price),
-        "sum_disc": exact(disc_price),
-        "sum_charge": exact(charge),
-        "sum_disc_rate": exact(disc),
-        "cnt": np.bincount(key, minlength=nk),
+        "sum_qty": qty[:nk],
+        "sum_base": p.sum(axis=(1, 2)),
+        "sum_disc": (p * (100 - d)).sum(axis=(1, 2)),
+        "sum_charge": (p * ((100 - d) * (100 + t))).sum(axis=(1, 2)),
+        "sum_disc_rate": (c * d).sum(axis=(1, 2)),
+        "cnt": c.sum(axis=(1, 2)),
     }
     den = np.maximum(out["cnt"], 1)
     out["avg_qty"] = out["sum_qty"] / den
@@ -818,8 +849,7 @@ def numpy_q17(cat, brand: str = "Brand#23", container: str = "MED BAG"):
 def numpy_q18(cat, quantity: int = 300, limit: int = 100):
     li, orders = _cols(cat, "lineitem"), _cols(cat, "orders")
     lk, qty = li["l_orderkey"].data, li["l_quantity"].data
-    tot = np.zeros(int(lk.max()) + 1, dtype=np.int64)
-    np.add.at(tot, lk, qty)
+    tot = exact_bincount(lk, qty, int(lk.max()) + 1)
     ok = orders["o_orderkey"].data
     ck = _cols(cat, "customer")["c_custkey"].data
     cust_ok = _at(_lookup(ck, np.ones(len(ck), dtype=bool), False), orders["o_custkey"].data, False)

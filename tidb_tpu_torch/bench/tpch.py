@@ -104,70 +104,105 @@ def _supp_for_part(partkey: np.ndarray, j: np.ndarray, n_supps: int) -> np.ndarr
     return (partkey + j * (n_supps // 4 + 1)) % n_supps + 1
 
 
-def gen_lineitem(sf: float, rng: np.random.Generator, n_orders: int) -> HostBlock:
+def _build_cols(draws, keep) -> HostBlock:
+    """Columns from (name, draw, build) in order: every draw runs, so the
+    generator's stream is the same whatever `keep` holds, and only the
+    kept columns (all when None) are built."""
+    cols = {}
+    for name, draw, build in draws:
+        raw = draw()
+        if keep is None or name in keep:
+            cols[name] = build(raw)
+        del raw
+    return HostBlock.from_columns(cols)
+
+
+def _i64(raw) -> HostColumn:
+    return _num(raw.astype(np.int64, copy=False), INT64)
+
+
+def _date(raw) -> HostColumn:
+    return _num(raw.astype(np.int32), DATE)
+
+
+def gen_lineitem(sf: float, rng: np.random.Generator, n_orders: int, keep=None) -> HostBlock:
     n = int(6_000_000 * sf)
-    orderkey = rng.integers(1, n_orders + 1, n).astype(np.int64)
     n_parts = max(int(200_000 * sf), 1000)
     n_supps = max(int(10_000 * sf), 100)
-    partkey = rng.integers(1, n_parts + 1, n).astype(np.int64)
-    suppkey = _supp_for_part(partkey, rng.integers(0, 4, n), n_supps)
-    cols = {
-        "l_orderkey": _num(orderkey, INT64),
-        "l_partkey": _num(partkey, INT64),
-        "l_suppkey": _num(suppkey.astype(np.int64), INT64),
-        "l_linenumber": _num(rng.integers(1, 8, n).astype(np.int64), INT64),
-        "l_quantity": _dec(rng.integers(1, 51, n) * 100),
-        "l_extendedprice": _dec(rng.integers(90_000, 10_500_000, n)),
-        "l_discount": _dec(rng.integers(0, 11, n)),
-        "l_tax": _dec(rng.integers(0, 9, n)),
-        "l_returnflag": _dict_col(rng.integers(0, 3, n), ["A", "N", "R"]),
-        "l_linestatus": _dict_col(rng.integers(0, 2, n), ["F", "O"]),
-        "l_shipdate": _num(rng.integers(_D_LO, _D_HI, n).astype(np.int32), DATE),
-        "l_commitdate": _num(rng.integers(_D_LO, _D_HI, n).astype(np.int32), DATE),
-        "l_receiptdate": _num(rng.integers(_D_LO, _D_HI, n).astype(np.int32), DATE),
-        "l_shipmode": _dict_col(rng.integers(0, len(_SHIPMODES), n), _SHIPMODES),
-        "l_shipinstruct": _dict_col(rng.integers(0, len(_SHIPINSTRUCT), n), _SHIPINSTRUCT),
-    }
-    return HostBlock.from_columns(cols)
+    # drawn first, in this order; each is dropped once its columns are
+    # built
+    pre = {"orderkey": rng.integers(1, n_orders + 1, n)}
+    pre["partkey"] = rng.integers(1, n_parts + 1, n)
+    pre["j"] = rng.integers(0, 4, n)
+    draws = [
+        ("l_orderkey", lambda: pre.pop("orderkey"), _i64),
+        ("l_partkey", lambda: pre["partkey"], _i64),
+        ("l_suppkey", lambda: (pre.pop("partkey"), pre.pop("j")),
+         lambda r: _i64(_supp_for_part(r[0], r[1], n_supps))),
+        ("l_linenumber", lambda: rng.integers(1, 8, n), _i64),
+        ("l_quantity", lambda: rng.integers(1, 51, n), lambda r: _dec(r * 100)),
+        ("l_extendedprice", lambda: rng.integers(90_000, 10_500_000, n), _dec),
+        ("l_discount", lambda: rng.integers(0, 11, n), _dec),
+        ("l_tax", lambda: rng.integers(0, 9, n), _dec),
+        ("l_returnflag", lambda: rng.integers(0, 3, n), lambda r: _dict_col(r, ["A", "N", "R"])),
+        ("l_linestatus", lambda: rng.integers(0, 2, n), lambda r: _dict_col(r, ["F", "O"])),
+        ("l_shipdate", lambda: rng.integers(_D_LO, _D_HI, n), _date),
+        ("l_commitdate", lambda: rng.integers(_D_LO, _D_HI, n), _date),
+        ("l_receiptdate", lambda: rng.integers(_D_LO, _D_HI, n), _date),
+        ("l_shipmode", lambda: rng.integers(0, len(_SHIPMODES), n),
+         lambda r: _dict_col(r, _SHIPMODES)),
+        ("l_shipinstruct", lambda: rng.integers(0, len(_SHIPINSTRUCT), n),
+         lambda r: _dict_col(r, _SHIPINSTRUCT)),
+    ]
+    return _build_cols(draws, keep)
 
 
-def gen_orders(sf: float, rng: np.random.Generator) -> HostBlock:
+def gen_orders(sf: float, rng: np.random.Generator, keep=None) -> HostBlock:
     n = int(1_500_000 * sf)
     n_cust = max(int(150_000 * sf), 100)
-    cols = {
-        "o_orderkey": _num(np.arange(1, n + 1, dtype=np.int64), INT64),
-        "o_custkey": _num(rng.integers(1, n_cust + 1, n).astype(np.int64), INT64),
-        "o_orderstatus": _dict_col(rng.integers(0, 3, n), ["F", "O", "P"]),
-        "o_totalprice": _dec(rng.integers(90_000, 50_000_000, n)),
-        "o_orderdate": _num(rng.integers(_D_LO, _D_HI - 151, n).astype(np.int32), DATE),
-        "o_orderpriority": _dict_col(rng.integers(0, len(_PRIORITIES), n), _PRIORITIES),
-        "o_shippriority": _num(np.zeros(n, dtype=np.int64), INT64),
-        "o_comment": _dict_col(rng.integers(0, len(_O_COMMENTS), n), _O_COMMENTS),
-    }
-    return HostBlock.from_columns(cols)
+    draws = [
+        ("o_orderkey", lambda: None, lambda _r: _num(np.arange(1, n + 1, dtype=np.int64), INT64)),
+        ("o_custkey", lambda: rng.integers(1, n_cust + 1, n), _i64),
+        ("o_orderstatus", lambda: rng.integers(0, 3, n), lambda r: _dict_col(r, ["F", "O", "P"])),
+        ("o_totalprice", lambda: rng.integers(90_000, 50_000_000, n), _dec),
+        ("o_orderdate", lambda: rng.integers(_D_LO, _D_HI - 151, n), _date),
+        ("o_orderpriority", lambda: rng.integers(0, len(_PRIORITIES), n),
+         lambda r: _dict_col(r, _PRIORITIES)),
+        ("o_shippriority", lambda: None, lambda _r: _num(np.zeros(n, dtype=np.int64), INT64)),
+        ("o_comment", lambda: rng.integers(0, len(_O_COMMENTS), n),
+         lambda r: _dict_col(r, _O_COMMENTS)),
+    ]
+    return _build_cols(draws, keep)
 
 
-def gen_customer(sf: float, rng: np.random.Generator) -> HostBlock:
+def gen_customer(sf: float, rng: np.random.Generator, keep=None) -> HostBlock:
     n = max(int(150_000 * sf), 100)
     nationkey = rng.integers(0, 25, n).astype(np.int64)
     # phone country code = nationkey + 10 (TPC-H spec clause 4.2.2.9)
     p1 = rng.integers(100, 1000, n)
     p2 = rng.integers(100, 1000, n)
     p3 = rng.integers(1000, 10000, n)
-    phones = [
-        f"{nationkey[i] + 10}-{p1[i]}-{p2[i]}-{p3[i]}" for i in range(n)
+
+    def phones(_r):
+        return _unique_str_col(
+            [f"{nationkey[i] + 10}-{p1[i]}-{p2[i]}-{p3[i]}" for i in range(n)]
+        )
+
+    draws = [
+        ("c_custkey", lambda: None, lambda _r: _num(np.arange(1, n + 1, dtype=np.int64), INT64)),
+        ("c_name", lambda: None,
+         lambda _r: _unique_str_col([f"Customer#{i:09d}" for i in range(1, n + 1)])),
+        ("c_address", lambda: None,
+         lambda _r: _unique_str_col([f"Addr {i:07d}" for i in range(1, n + 1)])),
+        ("c_nationkey", lambda: nationkey, lambda r: _num(r, INT64)),
+        ("c_phone", lambda: None, phones),
+        ("c_mktsegment", lambda: rng.integers(0, len(_SEGMENTS), n),
+         lambda r: _dict_col(r, _SEGMENTS)),
+        ("c_acctbal", lambda: rng.integers(-99_999, 1_000_000, n), _dec),
+        ("c_comment", lambda: rng.integers(0, len(_O_COMMENTS), n),
+         lambda r: _dict_col(r, _O_COMMENTS)),
     ]
-    cols = {
-        "c_custkey": _num(np.arange(1, n + 1, dtype=np.int64), INT64),
-        "c_name": _unique_str_col([f"Customer#{i:09d}" for i in range(1, n + 1)]),
-        "c_address": _unique_str_col([f"Addr {i:07d}" for i in range(1, n + 1)]),
-        "c_nationkey": _num(nationkey, INT64),
-        "c_phone": _unique_str_col(phones),
-        "c_mktsegment": _dict_col(rng.integers(0, len(_SEGMENTS), n), _SEGMENTS),
-        "c_acctbal": _dec(rng.integers(-99_999, 1_000_000, n)),
-        "c_comment": _dict_col(rng.integers(0, len(_O_COMMENTS), n), _O_COMMENTS),
-    }
-    return HostBlock.from_columns(cols)
+    return _build_cols(draws, keep)
 
 
 def gen_supplier(sf: float, rng: np.random.Generator) -> HostBlock:
@@ -272,15 +307,21 @@ def load_tpch(
     db: str = "tpch",
     seed: int = 0,
     tables: Optional[list] = None,
+    columns: Optional[Dict[str, list]] = None,
 ) -> None:
-    """Generate and load TPC-H tables into the catalog."""
+    """Generate and load TPC-H tables into the catalog. ``columns`` maps a
+    table to the only columns kept of it (the others are drawn and
+    dropped, so every kept value equals the full table's): the host RAM
+    that TPC-H SF100 needs for the columns a few queries read."""
     rng = np.random.default_rng(seed)
     catalog.create_database(db, if_not_exists=True)
-    orders = gen_orders(sf, rng)
+    keep = dict(columns or {})
+    orders = gen_orders(sf, rng, keep.get("orders"))
+    n_orders = int(1_500_000 * sf)
     gens = {
         "orders": lambda: orders,
-        "lineitem": lambda: gen_lineitem(sf, rng, orders.nrows),
-        "customer": lambda: gen_customer(sf, rng),
+        "lineitem": lambda: gen_lineitem(sf, rng, n_orders, keep.get("lineitem")),
+        "customer": lambda: gen_customer(sf, rng, keep.get("customer")),
         "supplier": lambda: gen_supplier(sf, rng),
         "nation": gen_nation,
         "region": gen_region,

@@ -13,11 +13,14 @@ earlier runs of the same plan, reads the cardinality scalars and the
 node overflowed its tile or a baked key width went stale. A warm run of
 TPC-H Q1 therefore makes one fetch.
 
-This slice compiles Scan, OneRow, Selection (with fused HAVING),
+This slice compiles Scan, OneRow, Staged, Selection (with fused HAVING),
 Projection, Aggregate, Join (cross, inner, left, semi, anti and mark),
 Window, Sort, Limit, top-N (ORDER BY ... LIMIT) and UnionAll on one
-device. Streamed/spilled execution, meshes and the plan-cache sharing of
-the JAX package belong to later slices and raise ``NotImplementedError``.
+device. An aggregation whose input is too large for one tile or for the
+device's free memory streams (``planner/streamed.py``) before the
+compiled path is tried. Keyed staged inputs, meshes and the plan-cache
+sharing of the JAX package belong to later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -199,6 +202,10 @@ def plan_fingerprint(plan: L.LogicalPlan) -> str:
             )
         elif isinstance(p, L.Limit):
             parts.append(f"{p.count},{p.offset}")
+        elif isinstance(p, L.Staged):
+            # the batch is baked into the compiled closure: the nonce keeps
+            # two batches from sharing one cache entry
+            parts.append(f"staged#{p.nonce}")
         kids = _plan_children(p)
         parts.append(f"#{len(kids)}")
         for c in kids:
@@ -416,6 +423,17 @@ class PlanCompiler:
                 return Batch({}, rv), {}
 
             return fn_one, {}
+
+        if isinstance(plan, L.Staged):
+            if plan.key is not None:
+                raise NotImplementedError("keyed staged inputs are not ported yet")
+            # a batch computed out of band (a streamed aggregate's result),
+            # closed over as a constant source
+
+            def fn_staged(inputs, caps, _b=plan.batch):
+                return _b, {}
+
+            return fn_staged, dict(plan.dicts or {})
 
         if isinstance(plan, L.Selection):
             if (
@@ -1095,6 +1113,15 @@ class PhysicalExecutor:
         self._cache: "OrderedDict[tuple, CompiledQuery]" = OrderedDict()
         # the compiled plan of the last statement run (its top-N paths)
         self.last_compiled: Optional[CompiledQuery] = None
+        # aggregate inputs stream chunk by chunk (planner/streamed.py):
+        # -1 = auto (past the tile limit, or when the working set overruns
+        # the device's free memory), >0 = explicit row threshold,
+        # 0/None = never stream
+        self.stream_rows = -1
+        self._stream_plans: "OrderedDict[tuple, object]" = OrderedDict()
+        # one record per aggregate the last statement streamed
+        self.stream_log: List[dict] = []
+        self._depth = 0
 
     def _resolve(self, db: str, table: str):
         t = self.catalog.table(db, table)
@@ -1117,31 +1144,50 @@ class PhysicalExecutor:
     def run(self, plan: L.LogicalPlan) -> Tuple[Batch, Dicts]:
         """Execute a plan. Returns (host batch of the plan schema's
         columns, output dictionaries); the batch's tensors are on the CPU
-        after one device->host fetch."""
-        names = [c.internal for c in plan.schema]
-        for attempt in range(4):
-            # the last attempts compile with no runtime-verified
-            # assumptions, so even a permanently violated one terminates
-            conservative = attempt >= 2
-            key = self._cache_key(plan)
-            cq = None if conservative else self._cache.get(key)
-            if cq is None:
-                cq = PlanCompiler(
-                    self.catalog, resolver=self._resolve, conservative=conservative,
-                    device=self.device,
-                ).compile(plan)
-                while len(self._cache) >= 256:
-                    self._cache.popitem(last=False)
-                self._cache[key] = cq
-            else:
-                self._cache.move_to_end(key)
-            try:
-                out = self._run_compiled(cq, names), cq.out_dicts
-                self.last_compiled = cq
-                return out
-            except StaleWidthsError:
-                self._cache.pop(key, None)
-        raise ExecError("packed key widths did not stabilize after recompiles")
+        after one device->host fetch. A streamed aggregate re-enters with
+        the rest of the plan over its staged result."""
+        from tidb_tpu_torch.planner.streamed import has_staged, try_streamed
+
+        if self._depth == 0:
+            self.stream_log = []
+        self._depth += 1
+        try:
+            names = [c.internal for c in plan.schema]
+            # a plan over a staged batch bakes that batch in: it is
+            # compiled for this statement only and never cached
+            baked = has_staged(plan)
+            for attempt in range(4):
+                # the last attempts compile with no runtime-verified
+                # assumptions, so even a permanently violated one terminates
+                conservative = attempt >= 2
+                key = self._cache_key(plan)
+                try:
+                    streamed = try_streamed(self, plan, conservative=conservative)
+                    if streamed is not None:
+                        return streamed
+                    cq = None if conservative or baked else self._cache.get(key)
+                    if cq is None:
+                        cq = PlanCompiler(
+                            self.catalog, resolver=self._resolve, conservative=conservative,
+                            device=self.device,
+                        ).compile(plan)
+                        if not baked:
+                            while len(self._cache) >= 256:
+                                self._cache.popitem(last=False)
+                            self._cache[key] = cq
+                    else:
+                        self._cache.move_to_end(key)
+                    out = self._run_compiled(cq, names), cq.out_dicts
+                    # keep the record, not the closure over a staged batch
+                    self.last_compiled = dataclasses.replace(cq, fn=None) if baked else cq
+                    return out
+                except StaleWidthsError:
+                    self._cache.pop(key, None)
+                    for k in [k for k in self._stream_plans if k[0] == key]:
+                        self._stream_plans.pop(k, None)
+            raise ExecError("packed key widths did not stabilize after recompiles")
+        finally:
+            self._depth -= 1
 
     def _fetch_inputs(self, cq: CompiledQuery) -> Dict[int, Batch]:
         inputs, resolved = {}, {}

@@ -37,15 +37,22 @@
    device time of its kernels alone (torch.profiler) and their launches
    per call.
 8. Spill: frees the SF10 and TPC-DS tables and their device columns, then
-   generates orders, lineitem and customer at TPC-H SF100 (BASELINE config
-   #4: 600M lineitem rows, no cut of scale; only the columns Q1 and Q18
-   read are kept, each equal to the full table's), ANALYZEs them, and runs
-   TPC-H Q18 (quantity 300) and Q1: each cold once and warm three times,
-   each run checked against the numpy oracles. Both exceed the port's
-   one-tile limit, so the executor's sizing streams them
-   (planner/streamed.py); each statement prints its streamed record
-   (mode, chunks, partial rows, the final merge and its parts), its
-   resident bytes after every run, and its host->device bytes and
+   generates orders, lineitem, customer, supplier and nation at TPC-H SF100
+   (BASELINE config #4: 600M lineitem rows, no cut of scale; only the
+   columns the phase's statements read are kept, each equal to the full
+   table's), ANALYZEs them, and runs TPC-H Q18 (quantity 300), Q1, Q21,
+   the late-receipt report R1 (oracles.SPILL_REPORTS: a full ORDER BY of
+   ~1M rows, no LIMIT) and Q1 under TiDB's default 1 GiB memory quota
+   (tidb_mem_quota_query, the executor's quota_bytes): each cold once and
+   warm three times, each run checked against the numpy oracles. Each
+   exceeds the port's one-tile limit, so the executor's sizing sends it
+   down a spill path (planner/streamed.py): Q18 and Q1 stream with their
+   columns on the device, Q21 takes grace hash (its EXISTS and NOT EXISTS
+   sides are lineitem too), R1 the host-merged ORDER BY, and the quota'd
+   Q1 streams chunks from host RAM with its device allocation above its
+   start within the quota. Each statement prints its spill records (path,
+   mode, chunks or partitions, why, seconds per stage), its resident
+   bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
    Phases 5, 6 and 8 each show that every kernel launched there: launch
    counts are zeroed just before a phase's runs and read just after them.
@@ -575,15 +582,20 @@ def run_phase(queries, report, base_table, before=None) -> dict:
         cold = time.perf_counter() - t0
         check(res)
         after = [torch.cuda.memory_allocated()]
+        paths = [[(r["path"], r["mode"]) for r in qs.executor.stream_log]]
+        peaks = [torch.cuda.max_memory_allocated()]
         warm = []
         f0, h0 = TRANSFERS["d2h_fetches"], TRANSFERS["h2d_bytes"]
         for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = qs.execute(sql)
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
             check(res)
             after.append(torch.cuda.memory_allocated())
+            paths.append([(r["path"], r["mode"]) for r in qs.executor.stream_log])
         table = base_table(name)
         report[name] = {
             "rows": len(res.rows),
@@ -593,18 +605,23 @@ def run_phase(queries, report, base_table, before=None) -> dict:
             "rows_of": table.name,
             # the peak includes what was resident before the query: cached
             # columns of earlier queries and the kernel inputs kept for phase 7
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_allocated": max(peaks),
+            # the peak of the cold run and of each warm run (each from the
+            # allocation at its start: a cold run may first release columns)
+            "peaks": peaks,
             "resident_before": resident,
             # allocated after the cold run and after each warm run
             "resident_after": after,
             "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / 3,
             "h2d_bytes_per_warm_run": (TRANSFERS["h2d_bytes"] - h0) / 3,
-            # the last run's record of each aggregate it streamed
+            # the last run's spill records (streamed aggregates, grace-hash
+            # pipelines, host-merged ORDER BYs), and each run's (path, mode)
             "stream": qs.executor.stream_log,
+            "stream_paths": paths,
             "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES},
             # each ORDER BY ... LIMIT of the statement: ["packed", key bits]
-            # or ["sorted", null]
-            "topn": qs.executor.last_compiled.topn,
+            # or ["sorted", null]; null when the host merged the ORDER BY
+            "topn": getattr(qs.executor.last_compiled, "topn", None),
         }
         log(f"{name}: " + json.dumps(report[name]))
     return dict(K.LAUNCHES)
@@ -612,15 +629,20 @@ def run_phase(queries, report, base_table, before=None) -> dict:
 
 #: TPC-H scale factor of the spill phase: BASELINE config #4's SF100, no cut
 SPILL_SF = 100.0
-#: the columns Q1 and Q18 read of the spill phase's tables: the full
-#: tables would take about 75 GB of host RAM (lineitem alone 116 bytes a
-#: row), the kept columns about 41 GB
+#: the columns Q1, Q18, Q21 and R1 read of the spill phase's tables: the
+#: full tables would take about 75 GB of host RAM (lineitem alone 116
+#: bytes a row), the kept columns about 48 GB
 SPILL_COLUMNS = {
-    "orders": ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"],
+    "orders": ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate", "o_orderstatus"],
     "lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
-                 "l_returnflag", "l_linestatus", "l_shipdate"],
+                 "l_returnflag", "l_linestatus", "l_shipdate", "l_suppkey", "l_receiptdate",
+                 "l_commitdate"],
     "customer": ["c_custkey"],
+    "supplier": ["s_suppkey", "s_nationkey"],
+    "nation": ["n_nationkey", "n_name"],
 }
+#: TiDB's default tidb_mem_quota_query (1 GiB), the quota'd Q1's
+SPILL_QUOTA = 1 << 30
 
 
 def host_memory() -> str:
@@ -728,12 +750,12 @@ def sf10_phases(args, seen, report) -> dict:
 
 
 def spill_phase(args, report) -> dict:
-    """Phase 8: TPC-H Q18 and Q1 at SF100 through the streamed path.
-    Returns the phase's launches."""
+    """Phase 8: TPC-H Q18, Q1, Q21, R1 and Q1 under a 1 GiB quota at SF100
+    through the spill paths. Returns the phase's launches."""
     import torch
 
     from tidb_tpu_torch.bench import load_tpch
-    from tidb_tpu_torch.bench.oracles import Q1_SQL, TPCH_QUERIES, spec_params
+    from tidb_tpu_torch.bench.oracles import Q1_SQL, SPILL_REPORTS, TPCH_QUERIES, spec_params
     from tidb_tpu_torch.chunk import TRANSFERS
     from tidb_tpu_torch.session import Session
     from tidb_tpu_torch.storage import Catalog
@@ -754,26 +776,62 @@ def spill_phase(args, report) -> dict:
         sess.execute(f"analyze table {t}")
     torch.cuda.synchronize()
     log(f"analyze: {len(tables)} tables in {time.perf_counter() - t0:.1f}s")
-    blk, li = raw_columns(cat, SPILL_COLUMNS["lineitem"])
-    q18 = TPCH_QUERIES["q18"]
+    blk, li = raw_columns(cat, ["l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
+                                "l_extendedprice", "l_discount", "l_tax"])
+    q18, q21, r1 = TPCH_QUERIES["q18"], TPCH_QUERIES["q21"], SPILL_REPORTS["r1"]
     params = spec_params("q18", SPILL_SF)
+    # the quota'd Q1 runs in a session of its own, as a user with the
+    # default quota would
+    qsess = Session(cat, db="tpch")
+    qsess.executor.quota_bytes = SPILL_QUOTA
+    q1_oracle = q1_check(blk, li)
     queries = [("q18_sf100", q18.sql.format(**params), oracle_check(cat, q18, params), sess),
-               ("q1_sf100", Q1_SQL, q1_check(blk, li), sess)]
+               ("q1_sf100", Q1_SQL, q1_oracle, sess),
+               ("q21_sf100", q21.sql, oracle_check(cat, q21, {}), sess),
+               ("r1_sf100", r1.sql, oracle_check(cat, r1, {}), sess),
+               ("q1_quota_sf100", Q1_SQL, q1_oracle, qsess)]
+    expect = {"q18_sf100": ("streamed", "device"), "q1_sf100": ("streamed", "device"),
+              "q21_sf100": ("partitioned", "device"), "r1_sf100": ("sort", "device"),
+              "q1_quota_sf100": ("streamed", "host")}
     h0 = TRANSFERS["h2d_bytes"]
     launches = run_phase(queries, report, lambda n: li)
     for name, _sql, _c, _s in queries:
         r = report[name]
         recs = r["stream"]
         log(f"stream {name}: {json.dumps(recs)}")
-        assert recs and all(x["chunks"] > 1 for x in recs), f"{name} did not stream"
+        for rec in recs:
+            stages = ", ".join(f"{k} {v:.4g}" for k, v in rec.get("seconds", {}).items())
+            size = (f"K {rec['K']}, largest partitions {rec['largest_partition_rows']}"
+                    if rec["path"] == "partitioned" else f"{rec['chunks']} chunks")
+            log(f"  {name}: {rec['path']}, {rec['mode']}, {size}; why: {rec['why']}; "
+                f"mode: {rec['mode_why']}; seconds: {stages}")
+        # every run, cold and warm, takes the path the sizing is meant to
+        want = expect[name]
+        assert r["stream_paths"] and all(
+            ps and all(p == want for p in ps) for ps in r["stream_paths"]
+        ), (name, r["stream_paths"])
+        if want[0] != "partitioned":
+            assert all(x["chunks"] > 1 for x in recs), f"{name} did not chunk"
         gb = [round(b / 1e9, 3) for b in r["resident_after"]]
+        above = r["max_memory_allocated"] - r["resident_before"]
         log(f"{name}: warm s {r['warm_s']}, cold s {r['cold_s']:.3f}, rows/s "
-            f"{r['rows_per_s']:.4g}, peak {r['max_memory_allocated'] / 1e9:.2f} GB, resident "
+            f"{r['rows_per_s']:.4g}, peak {r['max_memory_allocated'] / 1e9:.2f} GB "
+            f"({above / 1e9:.3f} GB above the start; cold and each warm run "
+            f"{[round(b / 1e9, 2) for b in r['peaks']]} GB), resident "
             f"{r['resident_before'] / 1e9:.2f} GB before and {gb} GB after each run, "
             f"h2d {r['h2d_bytes_per_warm_run']:.4g} B and d2h fetches "
             f"{r['d2h_fetches_per_warm_run']:.4g} per warm run")
-        # no run leaves its staged batch or partials behind
+        # no run leaves its staged batch, partials or partitions behind
         assert r["resident_after"][3] <= r["resident_after"][1] + (256 << 20), gb
+    for rec in report["q21_sf100"]["stream"]:
+        assert all(n <= 1 << 26 for n in rec["largest_partition_rows"].values()), rec
+    r = report["q1_quota_sf100"]
+    above = r["max_memory_allocated"] - r["resident_before"]
+    h2d_s = sum(x["seconds"]["h2d"] for x in r["stream"])
+    log(f"q1_quota_sf100: peak {above} B above its start under a {SPILL_QUOTA} B quota; "
+        f"host->device {r['h2d_bytes_per_warm_run'] / h2d_s / 1e9:.3f} GB/s over the last "
+        f"run's chunk copies ({h2d_s:.3f} s)")
+    assert above <= SPILL_QUOTA, above
     log(f"spill: h2d {TRANSFERS['h2d_bytes'] - h0} B over the phase; {host_memory()}")
     if args.profile:
         for name, sql, _check, qs in queries:

@@ -2,6 +2,7 @@
 
     python3 scripts/torch_query_times.py ROOT q3,q10,q18 [--repeat 10] [--sf 10]
                                          [--topn sorted] [--sync-debug]
+    python3 scripts/torch_query_times.py ROOT q95 --tpcds --sf 100
 
 Imports ``tidb_tpu_torch`` from the checkout at ROOT (so two commits can
 be compared inside one chip call: parent, change, change, parent),
@@ -9,7 +10,10 @@ generates the eight TPC-H tables with ``load_tpch(seed=1)``, ANALYZEs
 them as chip_smoke.py does, and runs each named query of
 ``oracles.TPCH_QUERIES`` (or Q3) once cold and REPEAT times warm, each
 run checked against its numpy oracle. Prints one JSON line: the card,
-ROOT, and per query the warm times in ms. Needs a CUDA card.
+ROOT, and per query the warm times in ms. Needs a CUDA card. With
+``--tpcds`` it generates the TPC-DS tables of BASELINE config #5 with
+``load_tpcds(seed=1)`` instead (no ANALYZE, as chip_smoke.py runs them)
+and runs TPC-DS Q95 ("q95").
 
 ``--topn sorted`` makes every ORDER BY ... LIMIT take the sorted path
 (in a checkout whose planner has the packed top-N, its widths are
@@ -40,6 +44,7 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--topn", choices=["auto", "sorted"], default="auto")
     ap.add_argument("--sync-debug", action="store_true")
+    ap.add_argument("--tpcds", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -63,13 +68,33 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     cat = Catalog()
-    load_tpch(cat, sf=args.sf, seed=1, tables=TABLES)
-    sess = Session(cat, db="tpch")
-    for t in TABLES:
-        sess.execute(f"analyze table {t}")
+    if args.tpcds:
+        from tidb_tpu_torch.bench.tpcds import load_tpcds
+
+        load_tpcds(cat, sf=args.sf, seed=1)
+        sess = Session(cat, db="test")
+    else:
+        load_tpch(cat, sf=args.sf, seed=1, tables=TABLES)
+        sess = Session(cat, db="tpch")
+        for t in TABLES:
+            sess.execute(f"analyze table {t}")
     out, syncs = {}, {}
     for name in args.queries.split(","):
-        if name == "q3":
+        if name == "q95":
+            from tidb_tpu_torch.bench.oracles import numpy_q95, same_value
+            from tidb_tpu_torch.bench.tpcds import Q95_SQL
+
+            sql = Q95_SQL
+            want = numpy_q95(cat)
+
+            def check(res, want=want):
+                # the order count exactly, the sums within 1e-12 relative
+                (got,) = [tuple(r) for r in res.rows]
+                assert got[0] == want[0] and all(
+                    (g is None and w is None) or same_value(g, w)
+                    for g, w in zip(got[1:], want[1:])
+                ), (got, want)
+        elif name == "q3":
             sql = Q3_SQL
             want, _tied = numpy_q3(cat)
 

@@ -6,7 +6,8 @@ aggregation, a vectorized ``numpy_q3``, and ``TPCH_QUERIES``:
 the other 18 TPC-H queries of tests/test_tpch_sql.py, each with its SQL
 text and a vectorized oracle, checked by ``check_rows``;
 ``REPORT_QUERIES``, window and set-operation reports over the TPC-H
-tables; and a vectorized ``numpy_q95`` over ``tpcds.load_tpcds`` data
+tables; ``SPILL_REPORTS``, the late-receipt report R1 (a full ORDER BY
+without LIMIT); and a vectorized ``numpy_q95`` over ``tpcds.load_tpcds`` data
 (the JAX package's loops over every row). They check
 results where no JAX is installed. String predicates are evaluated on
 each dictionary with plain ``str`` methods, independent of the engine's
@@ -508,6 +509,8 @@ def _lookup(keys: np.ndarray, values: np.ndarray, fill, dtype=None) -> np.ndarra
 
 def _at(table: np.ndarray, keys: np.ndarray, fill):
     """table[keys] with keys past the table reading `fill`."""
+    if len(keys) == 0 or (keys.min() >= 0 and keys.max() < len(table)):
+        return table[keys]  # every key inside: no clipped copy of the keys
     inside = (keys >= 0) & (keys < len(table))
     return np.where(inside, table[np.clip(keys, 0, len(table) - 1)], fill)
 
@@ -915,11 +918,16 @@ def numpy_q21(cat, nation: str = "SAUDI ARABIA", status: str = "F", limit: int =
     o_ok = _lookup(orders["o_orderkey"].data, st.data == _code(st, status), False)
     lk, sk = li["l_orderkey"].data, li["l_suppkey"].data
     late = li["l_receiptdate"].data > li["l_commitdate"].data
-    cand = late & _at(s_in, sk, False) & _at(o_ok, lk, False)
+    # the cheap tests first (a late line of the nation's supplier, ~2% of
+    # the rows), then the order's status on those alone
+    c = np.flatnonzero(late & _at(s_in, sk, False))
+    c = c[_at(o_ok, lk[c], False)]
+    cand = np.zeros(len(lk), dtype=bool)
+    cand[c] = True
     # only the orders holding a candidate row matter: count, per order and
     # per (order, supplier), all rows and late rows
     held = np.zeros(int(lk.max()) + 1, dtype=bool)
-    held[lk[cand]] = True
+    held[lk[c]] = True
     rows = np.flatnonzero(held[lk])
     width = int(sk.max()) + 1
     okeys, oinv = np.unique(lk[rows], return_inverse=True)
@@ -1188,6 +1196,40 @@ REPORT_QUERIES: Dict[str, TpchQuery] = {
 REPORT_BASE_TABLE = {"w1": "orders", "w2": "orders", "w3": "orders", "w4": "lineitem",
                      "w5": "orders", "u1": "lineitem", "u2": "orders", "u3": "orders"}
 
+#: R1, a late-receipt report: every line item received late in one week,
+#: worst first (a full ORDER BY over lineitem x orders, no aggregate, no
+#: LIMIT)
+R1_SQL = (
+    "select l_orderkey, l_suppkey, o_orderdate, l_receiptdate, "
+    "datediff(l_receiptdate, l_commitdate) as delay "
+    "from lineitem, orders "
+    "where o_orderkey = l_orderkey "
+    "and l_receiptdate between date '1995-03-01' and date '1995-03-07' "
+    "and l_receiptdate > l_commitdate "
+    "order by delay desc, l_orderkey"
+)
+
+
+def numpy_r1(cat, d0: str = "1995-03-01", d1: str = "1995-03-07"):
+    li, orders = _cols(cat, "lineitem"), _cols(cat, "orders")
+    rd, cd = li["l_receiptdate"].data, li["l_commitdate"].data
+    rows = np.flatnonzero((rd >= _days(d0)) & (rd <= _days(d1)) & (rd > cd))
+    lk = li["l_orderkey"].data[rows]
+    odate = _at(_lookup(orders["o_orderkey"].data, orders["o_orderdate"].data, -1), lk, -1)
+    keep = odate >= 0
+    rows, lk, odate = rows[keep], lk[keep], odate[keep]
+    delay = rd[rows].astype(np.int64) - cd[rows]
+    order = np.lexsort((lk, -delay))
+    return list(zip(lk[order].tolist(), li["l_suppkey"].data[rows][order].tolist(),
+                    _dates(odate[order]), _dates(rd[rows][order]), delay[order].tolist()))
+
+
+#: the spill phase's reports over the TPC-H SF100 tables, beside the
+#: TPC-H queries it runs
+SPILL_REPORTS: Dict[str, TpchQuery] = {
+    "r1": TpchQuery(R1_SQL, numpy_r1, (4, 0)),
+}
+
 
 def numpy_q95(cat, db: str = "test"):
     """TPC-DS Q95 over ``tpcds.load_tpcds`` data, vectorized: the same
@@ -1258,6 +1300,13 @@ def _canon(r):
             tuple(v for v in r if isinstance(v, float)))
 
 
+def _identical(got, want) -> bool:
+    """Equal row for row, value for value and type for type."""
+    return got == want and all(
+        type(x) is type(y) for g, w in zip(got, want) for x, y in zip(g, w)
+    )
+
+
 def _same_multiset(got, want, rel) -> bool:
     if len(got) != len(want):
         return False
@@ -1279,6 +1328,8 @@ def check_rows(got, want, order=None, limit=None, rel: float = 1e-12) -> None:
         return
     n = len(want) if limit is None else min(limit, len(want))
     assert len(got) == n, (len(got), n, got[:3], want[:3])
+    if _identical(got, want[:n]):
+        return  # every check below holds, checked at C speed (R1's 1M rows)
 
     def key(r):
         return tuple(r[c] for c in order)
@@ -1292,7 +1343,8 @@ def check_rows(got, want, order=None, limit=None, rel: float = 1e-12) -> None:
             j += 1
         run_got, run_want = got[i:min(j, n)], want[i:j]
         if j <= n:
-            assert _same_multiset(run_got, run_want, rel), (i, run_got, run_want)
+            assert _identical(run_got, run_want) or _same_multiset(run_got, run_want, rel), (
+                i, run_got, run_want)
         else:
             pool = list(run_want)
             for g in run_got:

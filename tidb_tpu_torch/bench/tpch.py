@@ -332,6 +332,10 @@ def load_tpch(
         if tables is not None and name not in tables:
             continue
         block = gen()
+        if name in keep:
+            block = HostBlock(
+                {n: c for n, c in block.columns.items() if n in keep[name]}, block.nrows
+            )
         t = catalog.create_table(db, name, _schema_of(block, name), if_not_exists=True)
         if t.nrows == 0:
             # bypass dictionary merge (fresh table, dicts already sorted)

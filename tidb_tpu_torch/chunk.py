@@ -231,11 +231,14 @@ def block_to_batch(
     device = resolve_device(device)
     cap = capacity or pad_capacity(block.nrows)
     pad = cap - block.nrows
+    # a block that fills its tile goes to the card as it is, with no padded
+    # host copy; on the CPU the copy keeps the batch off the table's arrays
+    copy = pad or device.type == "cpu"
     cols = {}
     for name, col in block.columns.items():
         cols[name] = DevCol(
-            to_device(np.pad(col.data, (0, pad)), device),
-            to_device(np.pad(col.valid, (0, pad)), device),
+            to_device(np.pad(col.data, (0, pad)) if copy else col.data, device),
+            to_device(np.pad(col.valid, (0, pad)) if copy else col.valid, device),
         )
     row_valid = np.zeros(cap, dtype=bool)
     row_valid[: block.nrows] = True

@@ -45,6 +45,7 @@ from tidb_tpu_torch.expression.expr import ColumnRef, Expr
 from tidb_tpu_torch.expression.kernels import _DeviceLUT, compile_expr
 from tidb_tpu_torch.planner import logical as L
 from tidb_tpu_torch.storage.scan import scan_table
+from tidb_tpu_torch.utils.memtrack import MemoryTracker, QuotaExceeded, batch_bytes
 
 Dicts = Dict[str, np.ndarray]
 # node function: (inputs by scan id, caps by node id) -> (batch, needs dict)
@@ -169,6 +170,22 @@ class CompiledQuery:
     # per ORDER BY ... LIMIT node, in build order: ("packed", total key
     # bits) or ("sorted", None)
     topn: List[Tuple[str, Optional[int]]] = dataclasses.field(default_factory=list)
+    # bytes of one row of each sized node's output tile (joins,
+    # aggregates, top-N sentinels, the output compaction): what quota
+    # admission charges per unit of its capacity knob
+    widths: Dict[int, int] = dataclasses.field(default_factory=dict)
+
+
+def _schema_width(schema) -> int:
+    """Bytes per row of a plan schema (data + validity per column, and
+    the row mask)."""
+    total = 1
+    for c in schema:
+        try:
+            total += c.type.np_dtype.itemsize + 1
+        except Exception:
+            total += 9
+    return total
 
 
 def plan_fingerprint(plan: L.LogicalPlan) -> str:
@@ -388,6 +405,7 @@ class PlanCompiler:
         self.nonnull: List[Tuple[int, str]] = []
         self.bound_checks: List[Tuple[int, str, int, int]] = []
         self.topn: List[Tuple[str, Optional[int]]] = []
+        self.widths: Dict[int, int] = {}
 
     def fresh_id(self) -> int:
         self._next_id += 1
@@ -407,6 +425,7 @@ class PlanCompiler:
             nonnull=list(self.nonnull),
             bound_checks=list(self.bound_checks),
             topn=list(self.topn),
+            widths={**self.widths, _OUT_NODE: _schema_width(plan.schema)},
         )
 
     def _build(self, plan: L.LogicalPlan):
@@ -619,6 +638,7 @@ class PlanCompiler:
         scalar = not plan.group_exprs
         # a scalar aggregate always has exactly one group
         self.defaults[nid] = 16 if scalar else 1024
+        self.widths[nid] = _schema_width(plan.schema)
         key_fns, key_names, key_widths, descs = build_agg_parts(
             plan, dicts, compiler=self
         )
@@ -711,6 +731,7 @@ class PlanCompiler:
             self.topn.append(("packed", total_bits))
             snid = self.fresh_id()
             self.defaults[snid] = 16
+            self.widths[snid] = 8
 
             def pack(b):
                 packed = torch.zeros(b.capacity, dtype=torch.int64, device=b.device)
@@ -818,13 +839,16 @@ class PlanCompiler:
             return None
         nid = self.fresh_id()
         self.defaults[nid] = 16
+        self.widths[nid] = 8
         return nid
 
-    def _sized_node(self) -> int:
+    def _sized_node(self, schema) -> int:
         """A join node whose output tile the executor discovers: it
-        starts at the dominant input tile (_join_default)."""
+        starts at the dominant input tile (_join_default). Its rows are
+        `schema`'s."""
         nid = self.fresh_id()
         self.defaults[nid] = 0
+        self.widths[nid] = _schema_width(schema)
         return nid
 
     def _build_join(self, plan: L.JoinPlan):
@@ -994,7 +1018,7 @@ class PlanCompiler:
             # the surviving row ids (an exact single-key semi join)
             if null_aware:
                 raise ExecError("null-aware multi-key anti join not supported")
-            nid = self._sized_node()
+            nid = self._sized_node(plan.schema)
             lks_rks = verify
 
             def fn_semi_multi(inputs, caps):
@@ -1025,8 +1049,8 @@ class PlanCompiler:
             # join the probe against the survivors on the row id, so
             # unmatched probe rows NULL-extend (ON never filters the
             # outer side)
-            nid = self._sized_node()
-            nid2 = self._sized_node()
+            nid = self._sized_node(plan.schema)
+            nid2 = self._sized_node(plan.schema)
             lks_rks = verify
 
             def fn_left_multi(inputs, caps):
@@ -1057,7 +1081,7 @@ class PlanCompiler:
 
             return fn_left_multi, _strip_uniq(dicts)
 
-        nid = self._sized_node()
+        nid = self._sized_node(plan.schema)
 
         def fn_join(inputs, caps):
             lb, n1 = left(inputs, caps)
@@ -1119,8 +1143,13 @@ class PhysicalExecutor:
         # 0/None = never stream
         self.stream_rows = -1
         self._stream_plans: "OrderedDict[tuple, object]" = OrderedDict()
-        # one record per aggregate the last statement streamed
+        # one record per streamed aggregate, grace-hash partitioned
+        # pipeline or host-merged ORDER BY of the last statement
         self.stream_log: List[dict] = []
+        # device bytes one statement may plan to hold (TiDB's
+        # tidb_mem_quota_query): None = no quota. Admission checks every
+        # launch against it; the spill paths size their chunks by it
+        self.quota_bytes: Optional[int] = None
         self._depth = 0
 
     def _resolve(self, db: str, table: str):
@@ -1146,7 +1175,7 @@ class PhysicalExecutor:
         columns, output dictionaries); the batch's tensors are on the CPU
         after one device->host fetch. A streamed aggregate re-enters with
         the rest of the plan over its staged result."""
-        from tidb_tpu_torch.planner.streamed import has_staged, try_streamed
+        from tidb_tpu_torch.planner.streamed import has_staged, try_partitioned, try_streamed
 
         if self._depth == 0:
             self.stream_log = []
@@ -1163,6 +1192,8 @@ class PhysicalExecutor:
                 key = self._cache_key(plan)
                 try:
                     streamed = try_streamed(self, plan, conservative=conservative)
+                    if streamed is None:
+                        streamed = try_partitioned(self, plan, conservative=conservative)
                     if streamed is not None:
                         return streamed
                     cq = None if conservative or baked else self._cache.get(key)
@@ -1177,17 +1208,62 @@ class PhysicalExecutor:
                             self._cache[key] = cq
                     else:
                         self._cache.move_to_end(key)
-                    out = self._run_compiled(cq, names), cq.out_dicts
+                    try:
+                        out = self._run_compiled(cq, names), cq.out_dicts
+                    except ExecError as e:
+                        # admission rejected the unpaged plan: retry with
+                        # streaming, then grace hash, forced (the whole
+                        # plan's tiles, not its aggregate's input, passed
+                        # the quota); when neither takes it, the
+                        # rejection and its tracker report stand
+                        if "memory quota exceeded" not in str(e):
+                            raise
+                        forced = try_streamed(self, plan, conservative=conservative, force=True)
+                        if forced is None:
+                            forced = try_partitioned(
+                                self, plan, conservative=conservative, force=True
+                            )
+                        if forced is None:
+                            raise
+                        return forced
                     # keep the record, not the closure over a staged batch
                     self.last_compiled = dataclasses.replace(cq, fn=None) if baked else cq
                     return out
                 except StaleWidthsError:
-                    self._cache.pop(key, None)
-                    for k in [k for k in self._stream_plans if k[0] == key]:
-                        self._stream_plans.pop(k, None)
+                    self.evict_stale(key)
             raise ExecError("packed key widths did not stabilize after recompiles")
         finally:
             self._depth -= 1
+
+    def evict_stale(self, key: tuple) -> None:
+        """Drop the compiled plan and every stream, partition and sort
+        plan compiled for the plan under `key` (``_cache_key``): their
+        baked widths or NULL-free assumptions no longer hold."""
+        self._cache.pop(key, None)
+        for k in [k for k in self._stream_plans if k[0] == key]:
+            self._stream_plans.pop(k, None)
+
+    def _admit(self, cq: CompiledQuery, inputs: Dict[int, Batch], caps: Dict[int, int]) -> None:
+        """Quota admission: account every buffer the launch will hold
+        (each scan batch at its tile, and twice each sized node's tile:
+        keyed group tables take two slots a group) against
+        ``quota_bytes`` before launching, and reject the launch with the
+        tracker tree's report when they pass it."""
+        if not self.quota_bytes:
+            return
+        root = MemoryTracker("query", quota_bytes=int(self.quota_bytes))
+        scans, nodes = root.child("scans"), root.child("operators")
+        try:
+            for nid, b in inputs.items():
+                scans.child(f"scan#{nid}").consume(
+                    batch_bytes(b.capacity, {n: c.data.dtype for n, c in b.cols.items()})
+                )
+            for nid, cap in caps.items():
+                label = "output" if nid == _OUT_NODE else f"node#{nid}"
+                nodes.child(label).consume(2 * cap * cq.widths.get(nid, 64))
+        except QuotaExceeded as e:
+            report = "\n".join(root.report())
+            raise ExecError(f"memory quota exceeded ({e}); tracker report:\n{report}") from None
 
     def _fetch_inputs(self, cq: CompiledQuery) -> Dict[int, Batch]:
         inputs, resolved = {}, {}
@@ -1209,10 +1285,21 @@ class PhysicalExecutor:
     def _run_compiled(self, cq: CompiledQuery, names: List[str]) -> Batch:
         inputs = self._fetch_inputs(cq)
         caps = dict(cq.caps or cq.default_caps)
-        for nid, c in caps.items():
-            if c == 0:  # join knobs start at the dominant input tile
-                caps[nid] = _join_default(inputs)
+        defaulted = [nid for nid, c in caps.items() if c == 0]
+        for nid in defaulted:  # join knobs start at the dominant input tile
+            caps[nid] = _join_default(inputs)
+        if self.quota_bytes and defaulted:
+            # under a quota a guessed tile must not fail admission on its
+            # own: start each guessed join knob within a share of the
+            # quota and let the overflow loop grow it as the data proves
+            # (each growth is admitted again). Knobs an earlier run
+            # discovered are known to be needed and stay.
+            share = max(int(self.quota_bytes) // (4 * len(caps)), 1)
+            for nid in defaulted:
+                w = max(cq.widths.get(nid, 64), 1)
+                caps[nid] = min(caps[nid], _cap_tile(max(share // (2 * w), 1024)))
         for _attempt in range(8):
+            self._admit(cq, inputs, caps)
             out, needs = cq.fn(inputs, caps)
             nids = sorted(needs)
             out_cap = caps.get(_OUT_NODE)

@@ -4,8 +4,10 @@ Counterpart of tidb_tpu/session/session.py for two statement kinds: a
 SELECT over stored tables and ANALYZE TABLE. ``execute`` parses, plans
 (``build_query``), runs the plan on the session's device and
 materializes rows, as the JAX session's ``_run_select`` does, and
-returns the same ``Result``; an uncorrelated scalar subquery runs first,
-as a statement of its own, and enters the plan as a literal. ANALYZE
+returns the same ``Result``; a full ORDER BY too large for the device
+is ordered in host RAM instead (``_try_host_sorted``). An uncorrelated
+scalar subquery runs first, as a statement of its own, and enters the
+plan as a literal. ANALYZE
 stores per-column statistics that the planner's join ordering reads.
 Other statements (DDL, DML, SET, FROM-less SELECT) and the MySQL server
 belong to later slices and raise ``NotImplementedError``.
@@ -20,7 +22,13 @@ import dataclasses
 import time
 from typing import List, Optional, Tuple
 
-from tidb_tpu_torch.chunk import materialize_rows, resolve_device
+from tidb_tpu_torch.chunk import (
+    HostBlock,
+    HostColumn,
+    block_to_rows,
+    materialize_rows,
+    resolve_device,
+)
 from tidb_tpu_torch.dtypes import (
     Kind,
     SQLType,
@@ -31,7 +39,8 @@ from tidb_tpu_torch.dtypes import (
 from tidb_tpu_torch.expression.expr import Literal
 from tidb_tpu_torch.parser import ast, parse
 from tidb_tpu_torch.planner import build_query
-from tidb_tpu_torch.planner.physical import PhysicalExecutor
+from tidb_tpu_torch.planner.physical import PhysicalExecutor, StaleWidthsError
+from tidb_tpu_torch.planner.streamed import try_streamed_sort
 from tidb_tpu_torch.stats import analyze_table
 from tidb_tpu_torch.storage import Catalog
 
@@ -75,10 +84,33 @@ class Session:
 
     def _run_select(self, s, ctes=None) -> Result:
         plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
-        batch, dicts = self.executor.run(plan)
-        rows = materialize_rows(batch, list(plan.schema), dicts)
         names = [c.name for c in plan.schema]
+        rows = self._try_host_sorted(plan)
+        if rows is None:
+            batch, dicts = self.executor.run(plan)
+            rows = materialize_rows(batch, list(plan.schema), dicts)
         return Result(names, rows, types=[c.type for c in plan.schema])
+
+    def _try_host_sorted(self, plan) -> Optional[List[Tuple]]:
+        """A full ORDER BY too large for the device
+        (``streamed.try_streamed_sort``): the rows, ordered in host RAM,
+        or None. Stale compile-time assumptions retry once with none."""
+        try:
+            hs = try_streamed_sort(self.executor, plan)
+        except StaleWidthsError:
+            self.executor.evict_stale(self.executor._cache_key(plan))
+            try:
+                hs = try_streamed_sort(self.executor, plan, conservative=True)
+            except StaleWidthsError:
+                hs = None
+        if hs is None:
+            return None
+        names, cols, n, dicts = hs
+        types = {c.internal: c.type for c in plan.schema}
+        block = HostBlock(
+            {m: HostColumn(types[m], cols[m][0], cols[m][1], dicts.get(m)) for m in names}, n
+        )
+        return block_to_rows(block, list(plan.schema))
 
     def _scalar_subquery(self, q, ctes=None) -> Literal:
         """Run an uncorrelated scalar subquery as a statement of its own

@@ -6,6 +6,7 @@
                                            # synthesized main-path inputs
     python3 chip_smoke.py --spill-only     # phases 1-3 and 8 only
     python3 chip_smoke.py --refresh-only   # phases 1-3 and the refresh phase only
+    python3 chip_smoke.py --builtins-only  # phases 1-3 and the builtins phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -30,6 +31,17 @@
    checked against its oracle. Each ORDER BY ... LIMIT prints the top-N
    path it took (packed key and its width, or sorted). No statement of
    phases 5 and 6 streams: SF10's tables fit one tile.
+   Then the builtins phase, on the same SF10 tables through the same
+   Session: the BI reports B1-B9 (oracles.BUILTIN_REPORTS: DATE_FORMAT,
+   LOWER and ROUND by month; UPPER, LEFT, CONCAT, SUBSTRING_INDEX and
+   CHAR_LENGTH over customers; WEEK and DAYNAME; TIMESTAMPDIFF, GREATEST,
+   LEAST, NULLIF and COALESCE; FLOOR, CEIL, TRUNCATE, SQRT and TRIM;
+   GROUP_CONCAT over a join and over nations; REPLACE, LOCATE, LPAD and
+   CONCAT_WS; a CI-collated CASE), each cold once and warm three times and
+   every run checked against its numpy oracle. It prints per report the
+   warm ms, cold s, the host seconds spent building dictionary tables in
+   the cold run, fetches and host->device bytes per warm run, and the
+   phase's seconds against its 120 s limit and its kernel launches.
    Then the server: the port's MySQL server (tidb_tpu_torch.server.Server)
    on the card over phase 5's SF10 tables, columns resident, driven by a
    raw-socket client (MysqlWire) on the port's protocol module. It connects
@@ -98,15 +110,17 @@
    mode, chunks or partitions, why, seconds per stage), its resident
    bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
-   Phases 5, 6, the server phase and 8 each show that every kernel
-   launched there: launch counts are zeroed just before a phase's runs and
-   read just after them.
+   Phases 5, 6, the builtins, server and refresh phases and 8 each show
+   that every kernel launched there: launch counts are zeroed just before
+   a phase's runs and read just after them.
 
 With --kernels, phases 4-6 and 8 are skipped: phase 7 runs on inputs
 shaped as the main path's (TPC-H Q1's slot_sums lanes at SF10, the
 l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
---spill-only, phases 4-7 are skipped. Neither prints the last line.
+--spill-only, phases 4-7 are skipped; --refresh-only and --builtins-only
+generate and ANALYZE the SF10 tables and run that one phase. None of them
+prints the last line.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -793,6 +807,9 @@ def sf10_phases(args, seen, report) -> dict:
     streamed = [n for n, _s, _c, _q in queries + slice6 if report[n]["stream"]]
     assert not streamed, f"SF10/TPC-DS statements streamed: {streamed}"
 
+    # --- the builtins phase: B1-B9 over the same SF10 tables ---
+    launches["builtins"] = builtins_phase(cat, sess, report)
+
     # --- the MySQL server over the same SF10 tables ---
     launches["server"] = server_phase(
         cat, blk, sess, {n: (sql, c) for n, sql, c, _q in queries}, report)
@@ -803,6 +820,68 @@ def sf10_phases(args, seen, report) -> dict:
     if args.profile:
         for name, sql, _check, qs in queries + slice6:
             profile_query(qs, name, sql, args.profile)
+    return launches
+
+
+#: the builtins phase's time limit (seconds), oracles included
+BUILTINS_LIMIT_S = 120.0
+
+
+def builtins_phase(cat, sess, report) -> dict:
+    """The builtins phase: the BI reports B1-B9 (oracles.BUILTIN_REPORTS)
+    over the SF10 tables through `sess`, each cold once and warm three
+    times and every run checked against its numpy oracle. Prints per
+    report the warm ms, cold s, the host seconds spent building dictionary
+    tables during the cold run (warm runs reuse the compiled plan's),
+    fetches and host->device bytes per warm run, and the phase's kernel
+    launches, which it returns."""
+    from tidb_tpu_torch.bench.oracles import BUILTIN_BASE_TABLE, BUILTIN_REPORTS
+    from tidb_tpu_torch.expression import kernels as EK
+
+    t0 = time.perf_counter()
+    luts = {}
+
+    def lut_after_cold(name, check):
+        def first(res):
+            luts.setdefault(name, dict(EK.LUT_BUILD))
+            check(res)
+
+        return first
+
+    queries = [(f"builtins_{n}", q.sql, lut_after_cold(f"builtins_{n}", oracle_check(cat, q, {})),
+                sess) for n, q in BUILTIN_REPORTS.items()]
+    launches = run_phase(
+        queries, report, lambda n: cat.table("tpch", BUILTIN_BASE_TABLE[n[len("builtins_"):]]),
+        before=lambda n: EK.reset_lut_stats())
+    for name, *_ in queries:
+        r = report[name]
+        r["lut_build_s"], r["lut_tables"] = luts[name]["seconds"], luts[name]["tables"]
+        log(f"{name}: warm ms {[round(w * 1e3, 2) for w in r['warm_s']]}, cold s "
+            f"{r['cold_s']:.3f} (dictionary tables {r['lut_build_s']:.3f} s, "
+            f"{r['lut_tables']} built), d2h fetches {r['d2h_fetches_per_warm_run']:.4g} and "
+            f"h2d {r['h2d_bytes_per_warm_run']:.4g} B per warm run, rows {r['rows']}")
+    took = time.perf_counter() - t0
+    log(f"builtins: phase {took:.1f}s of {BUILTINS_LIMIT_S:g}, launches {launches}")
+    return launches
+
+
+def builtins_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the builtins phase alone: the short
+    loop for expression work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = builtins_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the builtins phase"
     return launches
 
 
@@ -1867,6 +1946,9 @@ def main() -> int:
     ap.add_argument("--refresh-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the refresh phase only: no last line")
+    ap.add_argument("--builtins-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the builtins phase only: no last line")
     args = ap.parse_args()
 
     import torch
@@ -1908,6 +1990,10 @@ def main() -> int:
     kernels = None
     if args.refresh_only:
         log(json.dumps({"refresh": refresh_only(report)}))
+        log(card)
+        return 0
+    if args.builtins_only:
+        log(json.dumps({"builtins": builtins_only(report)}))
         log(card)
         return 0
     if not args.spill_only:

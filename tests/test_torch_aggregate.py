@@ -143,17 +143,31 @@ def test_scalar_over_no_rows(batches):
     _compare(jout, tout, [f"a{i}" for i in range(len(AGGS))])
 
 
-def test_unported_paths_raise():
-    """The claim loop and DISTINCT are ported now (their parity tests are
-    in test_torch_hashagg.py); what stays unported at this layer is
-    grouping over a CI-collated string, which the plan compiler refuses."""
+def test_unported_paths_raise(batches):
+    """The claim loop, DISTINCT and CI-collated keys are ported now (their
+    parity tests are in test_torch_hashagg.py and test_torch_collation.py);
+    what the device aggregation still refuses by name is a string-making
+    aggregate, which runs on the host (planner/hostagg.py) in both
+    packages. A CI-collated key's rank table and representatives equal
+    the JAX package's."""
+    from tidb_tpu.dtypes import SQLType as JSQLType
+    from tidb_tpu.dtypes import Kind as JKind
+    from tidb_tpu.expression.expr import ColumnRef as JRef
+    from tidb_tpu.planner import physical as JP
     from tidb_tpu_torch.expression.expr import ColumnRef
     from tidb_tpu_torch.planner import physical as TP
 
-    ci = ColumnRef(type=SQLType(Kind.STRING, 0, "utf8mb4_general_ci"), name="g_str")
-    with pytest.raises(NotImplementedError):
-        TP._require_binary_collation(ci)
-    TP._require_binary_collation(ColumnRef(type=SQLType(Kind.STRING), name="g_str"))
+    _jb, tb = batches
+    with pytest.raises(NotImplementedError, match="group_concat"):
+        TA.group_aggregate(tb, [lambda b: b.cols["g_int"]],
+                           [TA.AggDesc("group_concat", lambda b: b.cols["g_str"], "gc")],
+                           1024, ["k"])
+    d = np.array(["A", "B", "a", "b", "c ", "c"], dtype=object)
+    coll = "utf8mb4_general_ci"
+    jl, jrep = JP._collation_rank(JRef(type=JSQLType(JKind.STRING, 0, coll), name="s"), {"s": d})
+    tl, trep = TP._collation_rank(ColumnRef(type=SQLType(Kind.STRING, 0, coll), name="s"), {"s": d})
+    assert np.asarray(jl).tolist() == tl.table.tolist() and list(jrep) == list(trep)
+    assert TP._collation_rank(ColumnRef(type=SQLType(Kind.STRING), name="s"), {"s": d}) is None
 
 
 @pytest.mark.parametrize("slots", [16, 300])

@@ -79,6 +79,10 @@ class AggDesc:
     arg_scale: int = 0
     wide: bool = False
     pack_bound: Optional[int] = None
+    # decodes a MIN/MAX result (a CI-collated string's ``rank * D + code``
+    # back to its code); the partial stage of a split aggregation keeps
+    # the encoded values and only the final stage decodes
+    post: Optional[Callable] = None
 
 
 def _next_pow2(n: int) -> int:
@@ -664,7 +668,9 @@ def _run_aggs(batch, aggs, arg_cols, seg, slots, group_valid, cl, out_cols, reps
             rc = req("sum", ones, valid)
             emit(
                 a.out_name,
-                lambda R, rs=rs, rc=rc: DevCol(R[rs], (R[rc] > 0) & group_valid),
+                lambda R, rs=rs, rc=rc, p=a.post: DevCol(
+                    R[rs] if p is None else p(R[rs]), (R[rc] > 0) & group_valid
+                ),
             )
         elif a.func == "first":
             out_cols[a.out_name] = DevCol(data[cl], col.valid[cl] & group_valid)

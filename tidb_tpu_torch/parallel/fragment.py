@@ -30,8 +30,8 @@ def _partial_descs(
 ) -> Tuple[List[AggDesc], List[Tuple[str, str, List[str], int, object]]]:
     """Split aggregates into partial-stage descriptors and final-stage
     combine rules: (final func name, out name, partial col names, scale,
-    post-decode callable or None). The port's AggDesc has no ``post``
-    decoder yet, so the last field is always None."""
+    post-decode callable or None): the partial stage keeps MIN/MAX's
+    encoded values and the final stage decodes them."""
     partial: List[AggDesc] = []
     final: List[Tuple[str, str, List[str], int, object]] = []
     for i, a in enumerate(aggs):
@@ -54,7 +54,7 @@ def _partial_descs(
         elif a.func in ("min", "max"):
             pname = f"_p{i}"
             partial.append(AggDesc(a.func, a.arg, pname))
-            final.append((a.func, a.out_name, [pname], 0, None))
+            final.append((a.func, a.out_name, [pname], 0, a.post))
         elif a.func == "avg":
             sname, cname = f"_ps{i}", f"_pc{i}"
             partial.append(
@@ -73,13 +73,13 @@ def build_final_stage(key_names, final):
     fkeys = [_colfn(n) for n in key_names]
     fdescs: List[AggDesc] = []
     post_avg: List[Tuple[str, str, str, int]] = []
-    for func, out, pnames, scale, _post in final:
+    for func, out, pnames, scale, post in final:
         if func == "avg2":
             fdescs.append(AggDesc("sum", _colfn(pnames[0]), f"_fs_{out}"))
             fdescs.append(AggDesc("sum", _colfn(pnames[1]), f"_fc_{out}"))
             post_avg.append((out, f"_fs_{out}", f"_fc_{out}", scale))
         else:
-            fdescs.append(AggDesc(func, _colfn(pnames[0]), out))
+            fdescs.append(AggDesc(func, _colfn(pnames[0]), out, post=post))
     return fkeys, fdescs, post_avg
 
 

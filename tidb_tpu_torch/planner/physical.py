@@ -18,7 +18,8 @@ Projection, Aggregate, Join (cross, inner, left, semi, anti and mark),
 Window, Sort, Limit, top-N (ORDER BY ... LIMIT) and UnionAll on one
 device. An aggregation whose input is too large for one tile or for the
 device's free memory streams (``planner/streamed.py``) before the
-compiled path is tried. Keyed staged inputs, meshes and the plan-cache
+compiled path is tried, and one holding a GROUP_CONCAT reduces on the host
+(``planner/hostagg.py``). Keyed staged inputs, meshes and the plan-cache
 sharing of the JAX package belong to later slices and raise
 ``NotImplementedError``.
 """
@@ -304,16 +305,24 @@ def build_agg_parts(plan: "L.Aggregate", dicts, compiler=None):
     are provably small (interval arithmetic over storage bounds) drop to
     single-lane int64 accumulation, and bounded integer sums pack their
     (sum, count) pair into one lane; the proof is re-checked at every
-    fetch."""
-    for _n, e in plan.group_exprs:
-        _require_binary_collation(e)
+    fetch.
+
+    A string key under a CI collation groups by its class in the
+    collation (``_collation_rank``: equal-under-collation entries share
+    a code; ``agg_out_dicts`` publishes the representatives), MIN/MAX
+    over one order by the collation and COUNT(DISTINCT) dedupes by
+    class, as the JAX package's."""
     key_fns = [compile_expr(e, dicts) for _, e in plan.group_exprs]
     key_names = [n for n, _ in plan.group_exprs]
     key_widths = [_key_width(e, dicts) for _, e in plan.group_exprs]
+    for i, (_n, e) in enumerate(plan.group_exprs):
+        lr = _collation_rank(e, dicts)
+        if lr is None:
+            continue
+        key_fns[i] = _rank_wrap(key_fns[i], lr[0])
+        key_widths[i] = (max(1, int(len(lr[1])).bit_length()), 0)
     descs = []
     for name, func, arg, distinct in plan.aggs:
-        if arg is not None and func in ("min", "max", "count"):
-            _require_binary_collation(arg)
         fn = compile_expr(arg, dicts) if arg is not None else None
         scale = (
             arg.type.scale
@@ -338,26 +347,81 @@ def build_agg_parts(plan: "L.Aggregate", dicts, compiler=None):
                 wide = False
                 pack_bound = int(r[0])
         d = bool(distinct) and func in ("sum", "avg", "count") and arg is not None
+        post = None
+        if func in ("min", "max") and arg is not None:
+            cw = _collation_compose(arg, dicts)
+            if cw is not None:
+                fn, post = cw[0](fn), cw[1]
+        elif func == "count" and distinct and arg is not None:
+            lr = _collation_rank(arg, dicts)
+            if lr is not None:
+                fn = _rank_wrap(fn, lr[0])
         descs.append(
             AggDesc(
                 func, fn, name, distinct=d, arg_scale=scale, wide=wide,
-                pack_bound=pack_bound,
+                pack_bound=pack_bound, post=post,
             )
         )
     return key_fns, key_names, key_widths, descs
 
 
-def _require_binary_collation(e: Expr) -> None:
-    """CI-collated string keys group and order by collation rank (the JAX
-    package's _collation_rank); that path is not ported yet."""
+def _ci_dict(e: Expr, dicts):
+    """(dictionary, collation) of a string expression under a non-binary
+    collation, or None."""
     if e.type is None or e.type.kind != Kind.STRING or not e.type.collation:
-        return
+        return None
     from tidb_tpu_torch.utils import collate as _coll
 
-    if not _coll.is_binary(e.type.collation):
-        raise NotImplementedError(
-            f"aggregation over a {e.type.collation} string is not ported yet"
-        )
+    if _coll.is_binary(e.type.collation):
+        return None
+    d = _expr_dict(e, dicts)
+    return None if d is None else (d, e.type.collation)
+
+
+def _collation_compose(e: Expr, dicts):
+    """For a CI-collated string: (wrapper making its fn yield
+    ``rank * D + code``, post decoding the code) so MIN/MAX pick the
+    collation's extreme and still return a code of the dictionary."""
+    dc = _ci_dict(e, dicts)
+    if dc is None or not len(dc[0]):
+        return None
+    from tidb_tpu_torch.expression.kernels import _collation_rank_lut
+
+    ranks = _DeviceLUT(_collation_rank_lut(dc[0], dc[1])[0])
+    D = int(len(dc[0]))
+
+    def wrap(fn):
+        def composed(b: Batch) -> DevCol:
+            c = fn(b)
+            code = c.data.to(torch.int64).clamp(0, D - 1)
+            return DevCol(ranks(code) * D + code, c.valid)
+
+        return composed
+
+    return wrap, (lambda v: torch.remainder(v, D))
+
+
+def _collation_rank(e: Expr, dicts):
+    """(rank LUT, representative dictionary) of a string under a
+    non-binary collation (``collate.rank_lut``); None when binary or
+    without a dictionary."""
+    dc = _ci_dict(e, dicts)
+    if dc is None:
+        return None
+    from tidb_tpu_torch.utils import collate as _coll
+
+    lr = _coll.rank_lut(dc[0], dc[1])
+    if lr is None or len(lr[0]) == 0:
+        return None
+    return _DeviceLUT(lr[0]), lr[1]
+
+
+def _rank_wrap(fn, lut):
+    def wrapped(b: Batch) -> DevCol:
+        c = fn(b)
+        return DevCol(lut(c.data), c.valid)
+
+    return wrapped
 
 
 def agg_out_dicts(plan: "L.Aggregate", dicts) -> Dicts:
@@ -367,7 +431,12 @@ def agg_out_dicts(plan: "L.Aggregate", dicts) -> Dicts:
     for (kname, e) in plan.group_exprs:
         d = _expr_dict(e, dicts)
         if d is not None:
-            out_dicts[kname] = d
+            # a CI-collated key groups (and emits codes) by class: publish
+            # the class representatives (build_agg_parts maps the codes)
+            lr = _collation_rank(e, dicts)
+            out_dicts[kname] = d if lr is None else lr[1]
+            if lr is not None:
+                continue  # code bounds describe the codes before the map
         if isinstance(e, ColumnRef):
             cb = dicts.get(_BOUNDS_PREFIX + e.name)
             if cb is not None:
@@ -631,8 +700,6 @@ class PlanCompiler:
         return fn_scan, dicts
 
     def _build_aggregate(self, plan: L.Aggregate, post_pred=None):
-        if plan.gc_meta:
-            raise NotImplementedError("GROUP_CONCAT is not ported yet")
         child, dicts = self._build(plan.child)
         nid = self.fresh_id()
         scalar = not plan.group_exprs
@@ -1183,12 +1250,18 @@ class PhysicalExecutor:
         columns, output dictionaries); the batch's tensors are on the CPU
         after one device->host fetch. A streamed aggregate re-enters with
         the rest of the plan over its staged result."""
+        from tidb_tpu_torch.planner.hostagg import try_host_agg
         from tidb_tpu_torch.planner.streamed import has_staged, try_partitioned, try_streamed
 
         if self._depth == 0:
             self.stream_log = []
         self._depth += 1
         try:
+            # GROUP_CONCAT: the device projects the aggregate's inputs, the
+            # host concatenates, the rest of the plan runs over the result
+            hosted = try_host_agg(self, plan)
+            if hosted is not None:
+                return hosted
             names = [c.internal for c in plan.schema]
             # a plan over a staged batch bakes that batch in: it is
             # compiled for this statement only and never cached

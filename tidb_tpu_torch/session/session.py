@@ -35,7 +35,11 @@ for its statement. An autocommit DML that changed more than
 DUPLICATE KEY UPDATE, LOAD DATA, multi-table UPDATE/DELETE, FOREIGN
 KEY, CHECK, generated columns, PARTITION BY, ALTER TABLE, indexes,
 views, sequences and temporary tables raise ``NotImplementedError``
-naming themselves.
+naming themselves, and so do the clauses whose effect is not ported yet:
+AS OF TIMESTAMP and a read under a non-zero ``tidb_read_staleness``
+(stale reads), WITH RECURSIVE, a statement under a non-zero
+``max_execution_time`` or a MAX_EXECUTION_TIME hint, and the
+information_schema tables. Setting either variable succeeds.
 
 One statement's work on a device runs at a time in a process
 (``statement_lock``): the scan cache, the transfer and launch counters
@@ -403,10 +407,10 @@ class Session:
             return Result([], [])
         raise NotImplementedError(f"{type(s).__name__} statements are not ported yet")
 
-    @staticmethod
-    def _check_ported(s) -> None:
+    def _check_ported(self, s) -> None:
         """Refuse, before any lock is taken, a statement this slice
-        leaves out, naming it."""
+        leaves out, or a clause whose effect it does not port (one that
+        would be read and then ignored), naming it."""
         what = _UNPORTED.get(type(s))
         if isinstance(s, ast.Insert):
             what = "REPLACE" if s.replace else (
@@ -417,6 +421,41 @@ class Session:
             what = "multi-table DELETE"
         if what is not None:
             raise NotImplementedError(f"{what} is not ported yet")
+        if isinstance(s, _READS + _DML + (ast.CreateTable,)):
+            why = self._unported_clause(s)
+            if why is not None:
+                raise NotImplementedError(why)
+
+    def _unported_clause(self, s) -> Optional[str]:
+        """Why `s` is refused, or None: the first clause the port would
+        ignore (WITH RECURSIVE, AS OF TIMESTAMP, an information_schema
+        table, a MAX_EXECUTION_TIME hint); a read under a non-zero
+        ``tidb_read_staleness`` (the JAX package applies it to top-level
+        reads only); any statement under a non-zero
+        ``max_execution_time``."""
+        found = []
+
+        def see(n):
+            if isinstance(n, ast.With) and n.recursive:
+                found.append("WITH RECURSIVE is not ported yet")
+            elif isinstance(n, ast.TableRef):
+                if n.as_of is not None:
+                    found.append("AS OF TIMESTAMP is not ported yet")
+                elif (n.db or self.db or "").lower() == "information_schema":
+                    found.append("information_schema tables are not ported yet")
+            elif isinstance(n, ast.Select) and any(
+                str(h[0]).lower() == "max_execution_time" for h in n.hints or ()
+            ):
+                found.append("the MAX_EXECUTION_TIME hint is not ported yet")
+
+        _walk_dataclasses(s, see)
+        if found:
+            return found[0]
+        if isinstance(s, _READS) and int(self.vars.get("tidb_read_staleness") or 0):
+            return "stale reads (tidb_read_staleness) are not ported yet"
+        if int(self.vars.get("max_execution_time") or 0):
+            return "max_execution_time is not ported yet"
+        return None
 
     def _apply_sysvars(self) -> None:
         """``tidb_mem_quota_query`` and ``tidb_tpu_stream_rows`` onto the

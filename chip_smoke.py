@@ -7,6 +7,7 @@
     python3 chip_smoke.py --spill-only     # phases 1-3 and 8 only
     python3 chip_smoke.py --refresh-only   # phases 1-3 and the refresh phase only
     python3 chip_smoke.py --builtins-only  # phases 1-3 and the builtins phase only
+    python3 chip_smoke.py --statements-only  # phases 1-3 and the statements phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -42,6 +43,30 @@
    warm ms, cold s, the host seconds spent building dictionary tables in
    the cold run, fetches and host->device bytes per warm run, and the
    phase's seconds against its 120 s limit and its kernel launches.
+   Then the statements phase, on the same tables through the same
+   Session (oracles.STATEMENT_QUERIES): X1-X5, TPC-H Q2, Q9, Q14, Q16 and
+   Q20 with each LIKE restated as the REGEXP it equals, each checked
+   against its query's oracle; X6, revenue by REGEXP_SUBSTR's metal and
+   REGEXP_REPLACE's container kind over lineitem and part; X7, a CRM
+   profile table with ENUM, SET and JSON columns filled from customer,
+   nation and region (1.5M rows by INSERT ... SELECT) and a report over
+   orders by JSON_EXTRACT's region, segment and FIND_IN_SET's VIP flag,
+   then an ENUM value outside the list and invalid JSON, each refused
+   with the JAX package's error and the row count kept; X8, a 15M-row web
+   access log generated from the seed (oracles.access_log: 1M IPv4 and
+   50k IPv6 addresses, 1M session UUIDs, a DATETIME) loaded through
+   storage.convert, and a report by INET_ATON's first octet with IS_IPV6,
+   UUID_TO_BIN/BIN_TO_UUID, COMPRESS/UNCOMPRESSED_LENGTH and
+   AES_ENCRYPT/AES_DECRYPT round trips; X9, a WITH RECURSIVE date spine
+   over 1995 left-joined to orders (365 recursive steps, their seconds
+   printed); each cold once and warm three times, every run checked
+   against its numpy oracle, with the host seconds of the dictionary
+   tables (REGEXP, JSON, INET, AES) of each cold run. X10: EXPLAIN of the
+   22 TPC-H queries (Q1, Q3 and Q18's lines printed) and EXPLAIN ANALYZE
+   of Q1, Q3 and Q18, each asserting the root's rows= equal to the
+   oracle's row count and calls=1 on every node, its wall time beside
+   the query's warm time. It prints the phase's seconds against its 150 s
+   limit and its kernel launches.
    Then the server: the port's MySQL server (tidb_tpu_torch.server.Server)
    on the card over phase 5's SF10 tables, columns resident, driven by a
    raw-socket client (MysqlWire) on the port's protocol module. It connects
@@ -118,9 +143,9 @@ With --kernels, phases 4-6 and 8 are skipped: phase 7 runs on inputs
 shaped as the main path's (TPC-H Q1's slot_sums lanes at SF10, the
 l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
---spill-only, phases 4-7 are skipped; --refresh-only and --builtins-only
-generate and ANALYZE the SF10 tables and run that one phase. None of them
-prints the last line.
+--spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only
+and --statements-only generate and ANALYZE the SF10 tables and run that
+one phase. None of them prints the last line.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -810,6 +835,9 @@ def sf10_phases(args, seen, report) -> dict:
     # --- the builtins phase: B1-B9 over the same SF10 tables ---
     launches["builtins"] = builtins_phase(cat, sess, report)
 
+    # --- the statements phase: X1-X10 over the same SF10 tables ---
+    launches["statements"] = statements_phase(cat, sess, report)
+
     # --- the MySQL server over the same SF10 tables ---
     launches["server"] = server_phase(
         cat, blk, sess, {n: (sql, c) for n, sql, c, _q in queries}, report)
@@ -882,6 +910,163 @@ def builtins_only(report) -> dict:
     launches = builtins_phase(cat, sess, report)
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was not launched in the builtins phase"
+    return launches
+
+
+#: the statements phase's time limit (seconds), generation and oracles
+#: included
+STATEMENTS_LIMIT_S = 150.0
+#: the queries X10 runs EXPLAIN ANALYZE of
+EXPLAIN_ANALYZED = ("q1", "q3", "q18")
+
+
+def statements_phase(cat, sess, report) -> dict:
+    """The statements phase: X1-X9 (oracles.STATEMENT_QUERIES) over the
+    SF10 tables through `sess`, X7's profile table and X8's access log
+    made first, each statement cold once and warm three times and every
+    run checked against its numpy oracle; X7's refused writes; X10's
+    EXPLAIN and EXPLAIN ANALYZE. Both tables are dropped at the end.
+    Returns the phase's kernel launches (from the first of X1-X9's runs to
+    the last EXPLAIN ANALYZE)."""
+    import torch
+
+    from tidb_tpu_torch.bench import oracles as O
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.expression import kernels as EK
+    from tidb_tpu_torch.storage import add_table
+
+    t_phase = time.perf_counter()
+    log(f"statements: card {card_line()}")
+    # --- X7's table: DDL, then INSERT ... SELECT of every customer ---
+    t0 = time.perf_counter()
+    sess.execute(O.X7_DDL)
+    filled = sess.execute(O.X7_FILL).affected
+    nprof = cat.table("tpch", "customer").nrows
+    assert filled == nprof, (filled, nprof)
+    log(f"statements: cust_profile {filled} rows by INSERT ... SELECT in "
+        f"{time.perf_counter() - t0:.2f}s")
+    # --- X8's table: generated with numpy, loaded through storage.convert ---
+    t0 = time.perf_counter()
+    spec = O.access_log(SF)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alog = add_table(cat, "tpch", "access_log", spec)
+    log(f"statements: access_log {alog.nrows} rows, "
+        f"{len(alog.dictionaries['ip'])} addresses, {len(alog.dictionaries['sid'])} sessions: "
+        f"generated in {t_gen:.2f}s, loaded in {time.perf_counter() - t0:.2f}s")
+    del spec
+
+    # --- X1-X9 ---
+    base = {n: b for n, (b, _r) in O.REGEXP_RESTATED.items()}
+    luts, cte = {}, {}
+
+    def checked(name, check):
+        def first(res):
+            luts.setdefault(name, dict(EK.LUT_BUILD))
+            if sess.cte_log:
+                cte.setdefault(name, [dict(r) for r in sess.cte_log])
+            check(res)
+
+        return first
+
+    queries = []
+    for n, q in O.STATEMENT_QUERIES.items():
+        params = O.spec_params(base[n], SF) if n in base else {}
+        sql = q.sql.format(**params) if n in base else q.sql
+        queries.append((f"stmt_{n}", sql, checked(f"stmt_{n}", oracle_check(cat, q, params)), sess))
+    run_phase(
+        queries, report, lambda n: cat.table("tpch", O.STATEMENT_BASE_TABLE[n[len("stmt_"):]]),
+        before=lambda n: EK.reset_lut_stats())
+    for name, *_ in queries:
+        r = report[name]
+        r["lut_build_s"], r["lut_tables"] = luts[name]["seconds"], luts[name]["tables"]
+        extra = ""
+        if name in cte:
+            r["cte"] = cte[name]
+            c = cte[name][0]
+            extra = (f", recursion {c['steps']} steps in {c['seconds']:.3f}s "
+                     f"({c['seconds'] / max(c['steps'], 1) * 1e3:.2f} ms a step, first "
+                     f"{c['first_step_s'] * 1e3:.2f}, slowest {c['max_step_s'] * 1e3:.2f})")
+        log(f"{name}: warm ms {[round(w * 1e3, 2) for w in r['warm_s']]}, cold s "
+            f"{r['cold_s']:.3f} (dictionary tables {r['lut_build_s']:.3f} s, "
+            f"{r['lut_tables']} built), d2h fetches {r['d2h_fetches_per_warm_run']:.4g} and "
+            f"h2d {r['h2d_bytes_per_warm_run']:.4g} B per warm run, rows {r['rows']}{extra}")
+
+    # --- X7's refused writes: the JAX package's errors, no row written ---
+    for sql, err in O.X7_REFUSED:
+        try:
+            sess.execute(sql)
+        except ValueError as e:
+            assert str(e) == err, (str(e), err)
+        else:
+            raise AssertionError(f"not refused: {sql}")
+        (n,), = sess.execute("select count(*) from cust_profile").rows
+        assert n == nprof, (n, nprof)
+        log(f"statements: refused as the JAX package refuses it: {err}")
+
+    # --- X10: EXPLAIN of the 22 queries, EXPLAIN ANALYZE of three ---
+    tpch = {"q1": O.Q1_SQL, "q3": O.Q3_SQL, "q5": O.Q5_SQL, "q6": O.Q6_SQL}
+    for n, q in O.TPCH_QUERIES.items():
+        tpch[n] = q.sql.format(**O.spec_params(n, SF))
+    t0 = time.perf_counter()
+    explained = {n: [r[0] for r in sess.execute("explain " + sql).rows] for n, sql in tpch.items()}
+    log(f"statements: EXPLAIN of {len(explained)} TPC-H queries in "
+        f"{time.perf_counter() - t0:.2f}s, {sum(map(len, explained.values()))} lines")
+    for n in EXPLAIN_ANALYZED:
+        log(f"explain {n}:\n  " + "\n  ".join(explained[n]))
+    want_rows = {
+        "q1": len(O.numpy_q1(raw_columns(cat, ["l_shipdate", "l_returnflag", "l_linestatus",
+                                              "l_quantity", "l_extendedprice", "l_discount",
+                                              "l_tax"])[0])["cnt"].nonzero()[0]),
+        "q3": len(O.numpy_q3(cat)[0]),
+        "q18": min(len(O.TPCH_QUERIES["q18"].oracle(cat, **O.spec_params("q18", SF))), 100),
+    }
+    analyzed = {}
+    for n in EXPLAIN_ANALYZED:
+        sess.execute(tpch[n])  # cold where no earlier phase ran it
+        t0 = time.perf_counter()
+        rows = len(sess.execute(tpch[n]).rows)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = [r[0] for r in sess.execute("explain analyze " + tpch[n]).rows]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"explain analyze {n} ({wall * 1e3:.2f} ms; the query {warm * 1e3:.2f} ms):\n  "
+            + "\n  ".join(lines))
+        root = lines[0]
+        assert f" rows={want_rows[n]} " in root and rows == want_rows[n], (n, root, want_rows[n])
+        assert all(line.rstrip().endswith("calls=1") for line in lines), (n, lines)
+        analyzed[n] = {"wall_s": wall, "query_s": warm, "nodes": len(lines)}
+    report["stmt_x10"] = {"explain_lines": {n: len(v) for n, v in explained.items()},
+                          "analyze": analyzed}
+    # run_phase zeroed the counts before X1: they now hold X1-X10's
+    launches = dict(K.LAUNCHES)
+
+    for t in ("cust_profile", "access_log"):
+        sess.execute(f"drop table {t}")
+    took = time.perf_counter() - t_phase
+    log(f"statements: phase {took:.1f}s of {STATEMENTS_LIMIT_S:g}, launches {launches}")
+    return launches
+
+
+def statements_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the statements phase alone: the
+    short loop for statement work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = statements_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the statements phase"
     return launches
 
 
@@ -1949,6 +2134,9 @@ def main() -> int:
     ap.add_argument("--builtins-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the builtins phase only: no last line")
+    ap.add_argument("--statements-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the statements phase only: no last line")
     args = ap.parse_args()
 
     import torch
@@ -1994,6 +2182,10 @@ def main() -> int:
         return 0
     if args.builtins_only:
         log(json.dumps({"builtins": builtins_only(report)}))
+        log(card)
+        return 0
+    if args.statements_only:
+        log(json.dumps({"statements": statements_only(report)}))
         log(card)
         return 0
     if not args.spill_only:

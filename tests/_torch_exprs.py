@@ -52,12 +52,13 @@ STRINGS = np.array(sorted([
 CI = "utf8mb4_general_ci"
 
 
-def build_engines(seed=7):
+def build_engines(seed=7, strings=STRINGS):
     """(jax catalog, port catalog, dicts, jax batch, port batch) of table
     `t`: i, j INT; k INT bounded to [-40, 300] (its bounds ride the dicts
     map, as the planner sends them); d DECIMAL(2); f DOUBLE; dt DATE; ts
-    DATETIME; tm TIME; s, s2 strings; ci a utf8mb4_general_ci string; e an
-    all-NULL string (an empty dictionary)."""
+    DATETIME; tm TIME; s, s2 strings drawn from `strings` (a sorted object
+    array); ci a utf8mb4_general_ci string; e an all-NULL string (an empty
+    dictionary)."""
     rng = np.random.default_rng(seed)
 
     def nulls(p=0.1):
@@ -86,12 +87,12 @@ def build_engines(seed=7):
         "ts": JC.HostColumn(DATETIME, micros, nulls()),
         "tm": JC.HostColumn(TIME, rng.integers(-400, 400, N).astype(np.int64) * 3_600_000_000
                             + rng.integers(0, 3_600_000_000, N), nulls()),
-        "s": JC.HostColumn(STRING, rng.integers(0, len(STRINGS), N).astype(np.int32), nulls(0.15),
-                           STRINGS),
-        "s2": JC.HostColumn(STRING, rng.integers(0, len(STRINGS), N).astype(np.int32), nulls(),
-                            STRINGS),
+        "s": JC.HostColumn(STRING, rng.integers(0, len(strings), N).astype(np.int32), nulls(0.15),
+                           strings),
+        "s2": JC.HostColumn(STRING, rng.integers(0, len(strings), N).astype(np.int32), nulls(),
+                            strings),
         "ci": JC.HostColumn(JSQLType(JKind.STRING, 0, CI),
-                            rng.integers(0, len(STRINGS), N).astype(np.int32), nulls(), STRINGS),
+                            rng.integers(0, len(strings), N).astype(np.int32), nulls(), strings),
         "e": JC.HostColumn(STRING, np.zeros(N, np.int32), np.zeros(N, bool),
                            np.array([], dtype=object)),
     }

@@ -124,10 +124,19 @@ def test_expression_matches_jax_package(engines, expr):
     ("inet_aton(l_returnflag)", "inet_aton"),
 ])
 def test_unported_functions_raise_naming_them(engines, expr, name):
-    _jcat, tcat, dicts, _jb, tbatch = engines
-    te = _bound(torch_build(torch_parse(f"select {expr} as c from t")[0], tcat, "test"))
-    with pytest.raises(NotImplementedError, match=name):
-        torch_compile(te, dicts)(tbatch)
+    """These functions are ported: the test keeps the name of the refusal
+    it held and now holds each against the JAX package's (the family's
+    cases: tests/test_torch_builtins_rest.py)."""
+    jcat, tcat, dicts, jbatch, tbatch = engines
+    sql = f"select {expr} as c from t"
+    je = _bound(jax_build(jax_parse(sql)[0], jcat, "test"))
+    te = _bound(torch_build(torch_parse(sql)[0], tcat, "test"))
+    assert name in repr(te) and repr(je) == repr(te)
+    jc, tc = jax_compile(je, dicts)(jbatch), torch_compile(te, dicts)(tbatch)
+    rows = np.asarray(jbatch.row_valid)
+    assert (tc.valid.numpy()[rows] == np.asarray(jc.valid)[rows]).all()
+    keep = rows & np.asarray(jc.valid)
+    assert (tc.data.numpy()[keep] == np.asarray(jc.data)[keep]).all()
 
 
 def test_compiled_expressions_follow_the_batch_device(engines):

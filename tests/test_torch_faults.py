@@ -1,11 +1,12 @@
 """The clauses the port parsed and then ignored (or refused without naming
 them), now refused by name until a later slice ports them: stale reads
-(AS OF TIMESTAMP, tidb_read_staleness), WITH RECURSIVE, max_execution_time
-and the MAX_EXECUTION_TIME hint, and the information_schema tables. For
-each, the JAX package's Session answers the shape of its reference test
-file (test_staleread.py, test_round2_features.py,
-test_ttl_autoinc.py::TestMaxExecutionTime, test_ddl_infoschema.py) and the
-port's raises ``NotImplementedError`` naming the construct. Setting either
+(AS OF TIMESTAMP, tidb_read_staleness), max_execution_time and the
+MAX_EXECUTION_TIME hint, and the information_schema tables. For each, the
+JAX package's Session answers the shape of its reference test file
+(test_staleread.py, test_ttl_autoinc.py::TestMaxExecutionTime,
+test_ddl_infoschema.py) and the port's raises ``NotImplementedError``
+naming the construct. WITH RECURSIVE (test_round2_features.py) is ported:
+its shapes here give the JAX package's rows in the port. Setting either
 variable succeeds in the port, and a statement the JAX package does not
 apply the clause to runs."""
 
@@ -73,10 +74,12 @@ def test_read_staleness_is_refused(sessions):
      "select n from sub order by n", [(1,), (2,), (3,)]),
 ])
 def test_with_recursive_is_refused(sessions, sql, want):
+    """F2 is ported: the test keeps the name of the refusal it held and
+    now holds the port's rows against the JAX Session's (the other
+    recursive shapes: tests/test_torch_recursive_explain.py)."""
     js, ts = sessions
     assert js.execute(sql).rows == want
-    with pytest.raises(NotImplementedError, match="WITH RECURSIVE is not ported"):
-        ts.execute(sql)
+    assert ts.execute(sql).rows == want
 
 
 def test_max_execution_time_is_refused(sessions):

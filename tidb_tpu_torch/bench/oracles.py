@@ -7,7 +7,12 @@ the other 18 TPC-H queries of tests/test_tpch_sql.py, each with its SQL
 text and a vectorized oracle, checked by ``check_rows``;
 ``REPORT_QUERIES``, window and set-operation reports over the TPC-H
 tables; ``SPILL_REPORTS``, the late-receipt report R1 (a full ORDER BY
-without LIMIT); and a vectorized ``numpy_q95`` over ``tpcds.load_tpcds`` data
+without LIMIT); ``STATEMENT_QUERIES``, the statements phase's X1-X9
+(REGEXP restatements of TPC-H queries, a revenue report keyed by
+REGEXP_SUBSTR and REGEXP_REPLACE, a CRM profile table with ENUM, SET and
+JSON columns, a web access log with INET and UUID values, a recursive
+date spine) with ``access_log`` generating the log; and a vectorized
+``numpy_q95`` over ``tpcds.load_tpcds`` data
 (the JAX package's loops over every row). They check
 results where no JAX is installed. String predicates are evaluated on
 each dictionary with plain ``str`` methods, independent of the engine's
@@ -1519,6 +1524,241 @@ BUILTIN_REPORTS: Dict[str, TpchQuery] = {
 BUILTIN_BASE_TABLE = {"b1": "lineitem", "b2": "customer", "b3": "orders", "b4": "lineitem",
                       "b5": "part", "b6": "lineitem", "b7": "nation", "b8": "orders",
                       "b9": "customer"}
+
+
+# -- the statements phase: X1-X9 -------------------------------------------
+
+#: X1-X5: TPC-H queries with each LIKE restated as the REGEXP it equals,
+#: each checked against the oracle of the query it restates
+REGEXP_RESTATED = {
+    "x1": ("q2", [("p_type like '%BRASS'", "p_type regexp 'BRASS$'")]),
+    "x2": ("q9", [("p_name like '%green%'", "p_name regexp 'green'")]),
+    "x3": ("q14", [("p_type like 'PROMO%'", "p_type regexp '^PROMO'")]),
+    "x4": ("q16", [("p_type not like 'MEDIUM POLISHED%'", "p_type not regexp '^MEDIUM POLISHED'"),
+                   ("s_comment like '%Customer%Complaints%'",
+                    "s_comment regexp 'Customer.*Complaints'")]),
+    "x5": ("q20", [("p_name like 'forest%'", "p_name regexp '^forest'")]),
+}
+
+
+def _restated(name: str) -> TpchQuery:
+    base, repl = REGEXP_RESTATED[name]
+    q = TPCH_QUERIES[base]
+    sql = q.sql
+    for a, b in repl:
+        assert a in sql, (name, a)
+        sql = sql.replace(a, b)
+    return dataclasses.replace(q, sql=sql)
+
+
+X6_SQL = (
+    "select regexp_substr(p_type, '[A-Z]+$') as metal, "
+    "regexp_replace(p_container, '^(SM|MED|LG|JUMBO|WRAP) ', '') as container, "
+    "count(*) as line_count, sum(l_extendedprice * (1 - l_discount)) as revenue "
+    "from lineitem, part where l_partkey = p_partkey "
+    "group by metal, container order by metal, container"
+)
+
+
+def numpy_x6(cat):
+    """Revenue by a part's metal (the last word of p_type) and container
+    kind (p_container without its size word)."""
+    li, part = _cols(cat, "lineitem"), _cols(cat, "part")
+    metal, metals = _dict_map(part["p_type"], lambda s: s.rsplit(" ", 1)[-1])
+    cont, conts = _dict_map(part["p_container"], lambda s: s.split(" ", 1)[1])
+    pkey = _lookup(part["p_partkey"].data, metal * len(conts) + cont, -1)
+    g = _at(pkey, li["l_partkey"].data, -1)
+    keep = g >= 0
+    n = len(metals) * len(conts)
+    cnt = np.bincount(g[keep], minlength=n)
+    rev = exact_bincount(g[keep], _volume(li, keep), n)
+    return [(metals[i // len(conts)], conts[i % len(conts)], int(cnt[i]), rev[i] / 10**4)
+            for i in np.flatnonzero(cnt).tolist()]
+
+
+X7_SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
+X7_DDL = (
+    "create table cust_profile (c_custkey bigint primary key, segment enum("
+    + ",".join(f"'{s}'" for s in X7_SEGMENTS)
+    + "), flags set('intl','vip'), profile json)"
+)
+X7_FILL = (
+    "insert into cust_profile select c_custkey, c_mktsegment, "
+    "case when c_acctbal > 9000 then 'intl,vip' when c_acctbal > 5000 then 'vip' "
+    "when c_acctbal < 0 then 'intl' else '' end, "
+    "concat('{\"nation\":\"', n_name, '\",\"region\":\"', r_name, '\"}') "
+    "from customer, nation, region "
+    "where c_nationkey = n_nationkey and n_regionkey = r_regionkey"
+)
+X7_SQL = (
+    "select json_unquote(json_extract(profile, '$.region')) as region, segment, "
+    "find_in_set('vip', flags) > 0 as vip, max(json_length(profile)) as doc_fields, "
+    "count(*) as order_count, sum(o_totalprice) as total "
+    "from orders, cust_profile where o_custkey = c_custkey "
+    "group by region, segment, vip order by region, segment, vip"
+)
+#: writes X7's domains refuse, each with the JAX package's error text
+X7_REFUSED = [
+    ("insert into cust_profile values (0, 'RETAIL', '', '{}')",
+     "invalid ENUM value 'RETAIL' for column segment"),
+    ("insert into cust_profile values (0, 'BUILDING', 'vip', '{\"nation\": ')",
+     "invalid JSON value for column profile: '{\"nation\": '"),
+]
+
+
+def numpy_x7(cat):
+    """Orders by their customer's region, segment and VIP flag (an
+    account balance above 5,000), from the TPC-H columns."""
+    cust, orders, nat, reg = (_cols(cat, t) for t in ("customer", "orders", "nation", "region"))
+    r_name = _lookup(reg["r_regionkey"].data, reg["r_name"].dictionary[reg["r_name"].data]
+                     .astype(object), None, dtype=object)
+    n_region = _lookup(nat["n_nationkey"].data, nat["n_regionkey"].data, -1)
+    region = r_name[n_region[cust["c_nationkey"].data]]
+    regions, rcode = np.unique(region.astype(str), return_inverse=True)
+    seg = cust["c_mktsegment"]
+    vip = (cust["c_acctbal"].data > 500000).astype(np.int64)
+    ckey = _dense([(rcode.astype(np.int64), len(regions)),
+                   (seg.data.astype(np.int64), len(seg.dictionary)), (vip, 2)])
+    per_cust = _lookup(cust["c_custkey"].data, ckey, -1)
+    g = _at(per_cust, orders["o_custkey"].data, -1)
+    keep = g >= 0
+    n = len(regions) * len(seg.dictionary) * 2
+    cnt = np.bincount(g[keep], minlength=n)
+    tot = exact_bincount(g[keep], orders["o_totalprice"].data[keep], n)
+    rows = []
+    for i in np.flatnonzero(cnt).tolist():
+        r, rest = divmod(i, len(seg.dictionary) * 2)
+        s, v = divmod(rest, 2)
+        rows.append((str(regions[r]), str(seg.dictionary[s]), bool(v), 2, int(cnt[i]),
+                     int(tot[i]) / 100))
+    return rows
+
+
+#: the web access log at TPC-H SF10: orders' 15M rows, 1M IPv4 and 50k
+#: IPv6 addresses, 1M session ids (scaled with sf below SF10)
+ACCESS_LOG_ROWS_PER_SF = 1_500_000
+ACCESS_LOG_IPV4_PER_SF = 100_000
+ACCESS_LOG_IPV6_PER_SF = 5_000
+ACCESS_LOG_SESSIONS_PER_SF = 100_000
+ACCESS_LOG_FROM = "2024-01-01"
+ACCESS_LOG_DAYS = 91
+
+
+def _sorted_codes(values: list, picks: np.ndarray):
+    """(sorted dictionary, codes): `picks` index `values`."""
+    d = np.array(values, dtype=object)
+    order = np.argsort(d, kind="stable")
+    rank = np.empty(len(d), dtype=np.int32)
+    rank[order] = np.arange(len(d), dtype=np.int32)
+    return d[order], rank[picks]
+
+
+def access_log(sf: float, seed: int = 1) -> dict:
+    """A web access log as ``storage.catalog_from_numpy``'s table spec:
+    ts DATETIME (uniform over ACCESS_LOG_DAYS days), ip VARCHAR (distinct
+    IPv4 addresses in dotted form and IPv6 addresses in their canonical
+    text, 1 row in 20 IPv6) and sid VARCHAR (session UUIDs, 1 in 10 in
+    upper case), made from `seed` with numpy."""
+    import ipaddress
+
+    rng = np.random.default_rng(seed)
+    rows = int(ACCESS_LOG_ROWS_PER_SF * sf)
+    n4 = max(int(ACCESS_LOG_IPV4_PER_SF * sf), 16)
+    n6 = max(int(ACCESS_LOG_IPV6_PER_SF * sf), 4)
+    ns = max(int(ACCESS_LOG_SESSIONS_PER_SF * sf), 16)
+    v4 = np.unique(rng.integers(0, 1 << 32, int(n4 * 1.1) + 64, dtype=np.int64))
+    v4 = rng.permutation(v4)[:n4]
+    o = [(v4 >> s) & 255 for s in (24, 16, 8, 0)]
+    ips = [f"{a}.{b}.{c}.{d}" for a, b, c, d in zip(*(x.tolist() for x in o))]
+    hi = rng.integers(0, 1 << 63, n6, dtype=np.int64).tolist()
+    lo = rng.integers(0, 1 << 63, n6, dtype=np.int64).tolist()
+    ips += sorted({str(ipaddress.IPv6Address((h << 65) | (l_ << 1) | 1))
+                   for h, l_ in zip(hi, lo)})
+    n6 = len(ips) - n4
+    v6_row = rng.random(rows) < 0.05
+    pick = np.where(v6_row, n4 + rng.integers(0, n6, rows), rng.integers(0, n4, rows))
+    ip_dict, ip_codes = _sorted_codes(ips, pick)
+    raw = rng.integers(0, 256, (ns, 16), dtype=np.uint8)
+    hexes = [bytes(r).hex() for r in raw]
+    sids = [f"{h[:8]}-{h[8:12]}-{h[12:16]}-{h[16:20]}-{h[20:]}" for h in hexes]
+    sids = [x.upper() if i % 10 == 0 else x for i, x in enumerate(sids)]
+    sid_dict, sid_codes = _sorted_codes(sids, rng.integers(0, ns, rows))
+    t0 = _days(ACCESS_LOG_FROM) * 86_400_000_000
+    ts = t0 + rng.integers(0, ACCESS_LOG_DAYS * 86_400, rows, dtype=np.int64) * 1_000_000
+    ones = np.ones(rows, dtype=bool)
+    return {
+        "columns": [("ts", ("datetime", 0, None)), ("ip", ("string", 0, None)),
+                    ("sid", ("string", 0, None))],
+        "primary_key": None,
+        "data": {"ts": (ts, ones, None), "ip": (ip_codes, ones, ip_dict),
+                 "sid": (sid_codes, ones, sid_dict)},
+    }
+
+
+X8_FROM = "2024-02-01 00:00:00"
+X8_SQL = (
+    "select inet_aton(ip) >> 24 as net, count(*) as hits, "
+    "sum(case when is_ipv6(ip) then 1 else 0 end) as v6, "
+    "sum(case when bin_to_uuid(uuid_to_bin(sid)) = sid then 1 else 0 end) as sid_ok, "
+    "sum(case when uncompressed_length(compress(ip)) = length(ip) then 1 else 0 end) as zip_ok, "
+    "sum(case when aes_decrypt(aes_encrypt(ip, 'k'), 'k') = ip then 1 else 0 end) as aes_ok "
+    f"from access_log where ts >= '{X8_FROM}' group by net order by net"
+)
+
+
+def numpy_x8(cat):
+    """Hits per first octet (IPv6 addresses count under 0, where
+    INET_ATON gives 0), the IPv6 hits, and the hits whose session id is
+    in lower case (BIN_TO_UUID writes lower case); every address
+    survives COMPRESS and AES_ENCRYPT round trips."""
+    log_ = _cols(cat, "access_log")
+    ip, sid = log_["ip"], log_["sid"]
+    m = log_["ts"].data >= (_days(X8_FROM[:10]) * 86_400_000_000)
+    is6 = np.array([":" in s for s in ip.dictionary.tolist()] or [False])
+    net = np.array([0 if ":" in s else int(s.split(".")[0]) for s in ip.dictionary.tolist()]
+                   or [0], dtype=np.int64)
+    lower = np.array([s == s.lower() for s in sid.dictionary.tolist()] or [False])
+    g = net[ip.data[m]]
+    cnt = np.bincount(g, minlength=256)
+    v6 = np.bincount(g, weights=is6[ip.data[m]], minlength=256).astype(np.int64)
+    ok = np.bincount(g, weights=lower[sid.data[m]], minlength=256).astype(np.int64)
+    return [(i, int(cnt[i]), int(v6[i]), int(ok[i]), int(cnt[i]), int(cnt[i]))
+            for i in np.flatnonzero(cnt).tolist()]
+
+
+X9_SQL = (
+    "with recursive d(day) as (select date '1995-01-01' from region where r_regionkey = 0 "
+    "union all select day + interval 1 day from d where day < date '1995-12-31') "
+    "select d.day, count(o_orderkey) as order_count, sum(o_totalprice) as total "
+    "from d left join orders on o_orderdate = d.day group by d.day order by d.day"
+)
+
+
+def numpy_x9(cat):
+    """Orders and their total per day of 1995, every day present."""
+    o = _cols(cat, "orders")
+    d0, d1 = _days("1995-01-01"), _days("1995-12-31")
+    od = o["o_orderdate"].data.astype(np.int64)
+    m = (od >= d0) & (od <= d1)
+    n = d1 - d0 + 1
+    cnt = np.bincount(od[m] - d0, minlength=n)
+    tot = exact_bincount(od[m] - d0, o["o_totalprice"].data[m], n)
+    days = _dates(np.arange(d0, d1 + 1))
+    return [(days[i], int(cnt[i]), tot[i] / 100 if cnt[i] else None) for i in range(n)]
+
+
+#: X1-X9, the statements phase's queries (X7's table is made by X7_DDL
+#: and X7_FILL, X8's by ``access_log``)
+STATEMENT_QUERIES: Dict[str, TpchQuery] = {
+    **{n: _restated(n) for n in REGEXP_RESTATED},
+    "x6": TpchQuery(X6_SQL, numpy_x6, (0, 1)),
+    "x7": TpchQuery(X7_SQL, numpy_x7, (0, 1, 2)),
+    "x8": TpchQuery(X8_SQL, numpy_x8, (0,)),
+    "x9": TpchQuery(X9_SQL, numpy_x9, (0,)),
+}
+STATEMENT_BASE_TABLE = {"x1": "partsupp", "x2": "lineitem", "x3": "lineitem", "x4": "partsupp",
+                        "x5": "lineitem", "x6": "lineitem", "x7": "orders", "x8": "access_log",
+                        "x9": "orders"}
 
 
 def numpy_q95(cat, db: str = "test"):

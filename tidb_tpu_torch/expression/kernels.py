@@ -9,15 +9,18 @@ LEAST, INTERVAL), the date and time builtins (the EXTRACT family, HOUR ...
 MICROSECOND, DATE_ADD's month and microsecond forms, DATE_FORMAT, WEEK,
 LAST_DAY, TIMESTAMPDIFF, STR_TO_DATE, ...), numeric CAST with the JAX
 package's rounding, CAST of a string to a date, time or number, and the
-string builtins. Comparison and ORDER BY under a CI collation go through
-dense collation ranks.
+string builtins, the regexp family, the JSON functions, INET/UUID and
+AES/compress (their per-value functions in ``expression/hostfns.py``).
+Comparison and ORDER BY under a CI collation go through dense collation
+ranks.
 
 String functions are transforms over the sorted dictionary: a Python
 function runs once per distinct value on the host (built once per input
 dictionary and cached, ``LUT_BUILD`` counts the seconds), and the rows'
-codes go through the resulting LUT on the device. The regexp, JSON,
-INET/UUID and aes/compress builtins, and a CAST to a string, raise
-``NotImplementedError`` naming them.
+codes go through the resulting LUT on the device; a function of a string
+that yields an integer or a bool (REGEXP, JSON_LENGTH, INET_ATON, ...) is
+one such table gathered by code. A CAST of a column to a string raises
+``NotImplementedError``, as in the JAX package.
 
 Null semantics are MySQL three-valued logic carried in validity masks.
 Strings are dictionary codes; each dictionary is sorted, so order
@@ -38,6 +41,7 @@ import torch
 
 from tidb_tpu_torch.chunk import Batch, DevCol
 from tidb_tpu_torch.dtypes import FLOAT64, US_PER_DAY, US_PER_SECOND, Kind, SQLType
+from tidb_tpu_torch.expression import hostfns as H
 from tidb_tpu_torch.expression.expr import (
     ARITH,
     BITOPS,
@@ -296,7 +300,7 @@ def string_expr(e: Expr, dicts: DictContext):
     op = e.op
     if op == "_force_bin":
         return string_expr(e.args[0], dicts)  # passthrough marker
-    if op in _STR_TRANSFORMS:
+    if op in _STR_TRANSFORMS or op in H.JSON_STR_FUNCS:
         return _transform_expr(e, dicts)
     if op in ("dayname", "monthname"):
         return _dayname_expr(e, dicts)
@@ -379,13 +383,13 @@ def _string_case(e: Func, dicts: DictContext):
 
 
 # string -> string builtins run over the dictionary (the JAX package's
-# _STR_TRANSFORMS less "the rest": regexp, JSON, aes/compress, INET6/UUID)
+# _STR_TRANSFORMS)
 _STR_TRANSFORMS = {
     "upper", "lower", "trim", "ltrim", "rtrim", "replace", "substring",
     "left", "right", "reverse", "lpad", "rpad", "repeat", "quote",
     "insert_str", "md5", "sha1", "sha2", "hex_str", "substring_index",
     "soundex", "to_base64", "from_base64", "weight_string", "unhex",
-}
+} | H.BINARY_TRANSFORMS
 
 _SOUNDEX = {"b": "1", "f": "1", "p": "1", "v": "1",
             "c": "2", "g": "2", "j": "2", "k": "2", "q": "2", "s": "2", "x": "2", "z": "2",
@@ -409,13 +413,18 @@ def _soundex(s):
 
 
 def _str_transform_pyfn(e: Func):
-    """The per-value Python function of a string transform (the JAX
-    package's ``_str_transform_pyfn``); None from it is SQL NULL."""
+    """The per-value Python function of a string transform or a
+    string-valued JSON function (the JAX package's ``_str_transform_pyfn``
+    and ``_json_pyfn``); None from it is SQL NULL."""
     import base64
     import hashlib
 
     op = e.op
     ex = [a.value for a in e.args[1:]]
+    if op in H.JSON_STR_FUNCS:
+        return H.json_str_fn(op, ex)
+    if op in H.BINARY_TRANSFORMS:
+        return H.binary_transform_fn(op, ex)
     if op == "upper":
         return lambda s: s.upper()
     if op == "lower":
@@ -543,7 +552,9 @@ def _transform_expr(e: Func, dicts: DictContext):
 
     def build():
         pyfn = _str_transform_pyfn(e)
-        outs = list(map(pyfn, (str(v) for v in d.tolist())))
+        many = getattr(pyfn, "many", None)
+        vals = [str(v) for v in d.tolist()]
+        outs = many(vals) if many is not None else list(map(pyfn, vals))
         present = sorted({o for o in outs if o is not None})
         index = {v: i for i, v in enumerate(present)}
         codes = np.fromiter((index.get(o, 0) for o in outs), dtype=np.int32, count=len(outs))
@@ -967,7 +978,9 @@ def _compile(e: Expr, dicts: DictContext) -> _CompiledExpr:
             return _null_col(torch.int64)
         needle = str(sub.value)
         return _compile_strlut(s, dicts, lambda v: v.find(needle) + 1, np.int64, key=(op, needle))
-    if op in _STR_TRANSFORMS or op in (
+    if op in _STR_VALUED_FNS:
+        return _compile_str_valued(e, dicts)
+    if op in _STR_TRANSFORMS or op in H.JSON_STR_FUNCS or op in (
         "concat", "concat_ws", "dayname", "monthname", "date_format", "hex", "bin", "oct",
     ):
         return string_expr(e, dicts)[0]
@@ -1021,6 +1034,77 @@ _STRLUT_FNS = {
     "ord": _ord,
     "crc32": _crc32,
 }
+
+
+#: functions of a string that yield an integer or a bool, one table over
+#: the input dictionary each (the JAX package's kernels.py:1448-1824)
+_STR_VALUED_FNS = {
+    "regexp", "regexp_like", "regexp_instr", "json_contains", "json_valid", "json_length",
+    "json_depth", "json_contains_path", "json_overlaps", "json_storage_size", "is_uuid",
+    "is_ipv4", "is_ipv6", "is_ipv4_compat", "is_ipv4_mapped", "uncompressed_length",
+    "inet_aton",
+}
+
+
+def _literal_args(e: Func, first: int, what: str) -> list:
+    """The values of e.args[first:], each a literal, or the JAX package's
+    refusal naming `what`."""
+    for a in e.args[first:]:
+        if not isinstance(a, Literal) or a.param_slot is not None:
+            raise NotImplementedError(what)
+    return [a.value for a in e.args[first:]]
+
+
+def _compile_str_valued(e: Func, dicts: DictContext) -> _CompiledExpr:
+    """REGEXP / REGEXP_LIKE / REGEXP_INSTR, the JSON predicates and
+    measures, IS_UUID, IS_IPV4 and kin, UNCOMPRESSED_LENGTH and INET_ATON:
+    `pyfn` over the first argument's dictionary on the host, one gather on
+    the device. A pattern, path or candidate is a literal, as in the JAX
+    package."""
+    op = e.op
+    col = e.args[0]
+    if op in ("regexp", "regexp_like", "regexp_instr"):
+        pat = e.args[1]
+        if not isinstance(pat, Literal) or pat.param_slot is not None:
+            raise NotImplementedError("REGEXP pattern must be a literal")
+        pv = pat.value
+        out_dtype = np.int64 if op == "regexp_instr" else np.bool_
+        if pv is None:
+            return _null_col(torch.int64 if op == "regexp_instr" else torch.bool)
+        rx = re.compile(str(pv))
+        if op == "regexp_instr":
+            def pyfn(s):
+                m = rx.search(s)
+                return (m.start() + 1) if m else 0
+        else:
+            def pyfn(s):
+                return rx.search(s) is not None
+        return _compile_strlut(col, dicts, pyfn, out_dtype, key=(op, str(pv)))
+    if op == "json_contains":
+        ex = _literal_args(e, 1, "JSON_CONTAINS candidate/path must be literals")
+        pyfn, out_dtype = H.json_contains_fn(ex[0], ex[1] if len(ex) > 1 else None), np.bool_
+    elif op == "json_length":
+        ex = _literal_args(e, 1, "json_length path must be literal")
+        pyfn, out_dtype = H.json_length_fn(str(ex[0]) if ex else None), np.int64
+    elif op == "json_contains_path":
+        ex = _literal_args(e, 1, "json_contains_path mode and paths must be literals")
+        pyfn, out_dtype = H.json_contains_path_fn(ex[0], ex[1:]), np.bool_
+    elif op == "json_overlaps":
+        ex = _literal_args(e, 1, "json_overlaps candidate must be a literal")
+        pyfn, out_dtype = H.json_overlaps_fn(ex[0]), np.bool_
+    elif op in ("is_ipv4", "is_ipv6", "is_ipv4_compat", "is_ipv4_mapped"):
+        ex, pyfn, out_dtype = [], H.ip_predicate(op), np.bool_
+    else:
+        ex = []
+        pyfn, out_dtype = {
+            "json_valid": (H.json_valid, np.int64),
+            "json_depth": (H.json_depth, np.int64),
+            "json_storage_size": (H.json_storage_size, np.int64),
+            "is_uuid": (H.is_uuid, np.bool_),
+            "uncompressed_length": (H.uncompressed_length, np.int64),
+            "inet_aton": (H.inet_aton, np.int64),
+        }[op]
+    return _compile_strlut(col, dicts, pyfn, out_dtype, key=(op, repr(ex)))
 
 
 def _compile_field(e: Func, dicts: DictContext) -> _CompiledExpr:
@@ -1391,9 +1475,12 @@ def _compile_strstr(e: Func, dicts: DictContext) -> _CompiledExpr:
     )
     fa, da = string_expr(ea, dicts)
     fb, db = string_expr(eb, dicts)
-    _m, la, lb = _coll.merge_rank_luts(da, db, coll)
-    lut_a = _DeviceLUT(np.asarray(la, dtype=np.int64))
-    lut_b = _DeviceLUT(np.asarray(lb, dtype=np.int64))
+
+    def build():
+        _m, la, lb = _coll.merge_rank_luts(da, db, coll)
+        return _DeviceLUT(np.asarray(la, dtype=np.int64)), _DeviceLUT(np.asarray(lb, dtype=np.int64))
+
+    lut_a, lut_b = _cached_table(("strstr", coll), (da, db), build)
 
     def _strstr(b):
         a, c = fa(b), fb(b)

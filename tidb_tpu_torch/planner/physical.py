@@ -16,8 +16,10 @@ TPC-H Q1 therefore makes one fetch.
 This slice compiles Scan, OneRow, Staged, Selection (with fused HAVING),
 Projection, Aggregate, Join (cross, inner, left, semi, anti and mark),
 Window, Sort, Limit, top-N (ORDER BY ... LIMIT) and UnionAll on one
-device. An aggregation whose input is too large for one tile or for the
-device's free memory streams (``planner/streamed.py``) before the
+device. With ``instrument=True`` every node is wrapped with a wall-time
+and row-count probe: ``PhysicalExecutor.run_analyze`` is the engine side
+of EXPLAIN ANALYZE. An aggregation whose input is too large for one tile
+or for the device's free memory streams (``planner/streamed.py``) before the
 compiled path is tried, and one holding a GROUP_CONCAT reduces on the host
 (``planner/hostagg.py``). Keyed staged inputs, meshes and the plan-cache
 sharing of the JAX package belong to later slices and raise
@@ -27,6 +29,7 @@ sharing of the JAX package belong to later slices and raise
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -458,10 +461,23 @@ class PlanCompiler:
 
     conservative=True drops every runtime-verified compile-time
     assumption (int-column bounds, NULL-free folding): the executor's
-    stale-retry loop falls back to it when assumptions keep failing."""
+    stale-retry loop falls back to it when assumptions keep failing.
 
-    def __init__(self, catalog, resolver=None, conservative: bool = False, device=None):
+    instrument=True records each node's label and depth
+    (``node_labels``) and wraps its function with a wall-time and
+    row-count probe (``stats``), which waits for the device after every
+    node: a diagnostic mode, the engine side of EXPLAIN ANALYZE
+    (reference RuntimeStatsColl, pkg/util/execdetails/execdetails.go)."""
+
+    def __init__(self, catalog, resolver=None, conservative: bool = False, device=None,
+                 instrument: bool = False):
         self.conservative = conservative
+        self.instrument = instrument
+        # (label id, depth, label) in build order, and label id ->
+        # {"time_s", "rows", "calls"}; filled in instrument mode only
+        self.node_labels: List[Tuple[int, int, str]] = []
+        self.stats: Dict[int, Dict[str, float]] = {}
+        self._depth = 0
         self.catalog = catalog
         # where plan nodes without a scan (OneRow) make their tiles
         self.device = device
@@ -498,6 +514,38 @@ class PlanCompiler:
         )
 
     def _build(self, plan: L.LogicalPlan):
+        if not self.instrument:
+            return self._build_node(plan)
+        lid = len(self.node_labels) + 1
+        self.node_labels.append((lid, self._depth, _node_label(plan)))
+        self._depth += 1
+        try:
+            fn, dicts = self._build_node(plan)
+        finally:
+            self._depth -= 1
+        return self._wrap(lid, fn), dicts
+
+    def _wrap(self, lid: int, fn):
+        """`fn` timed to the device's completion (a node's time includes
+        its children's), its output's live rows counted with one fetch."""
+        stats = self.stats
+
+        def timed(inputs, caps):
+            t0 = time.perf_counter()
+            batch, needs = fn(inputs, caps)
+            if batch.row_valid.is_cuda:
+                torch.cuda.synchronize(batch.row_valid.device)
+            el = time.perf_counter() - t0
+            rows = int(fetch([batch.row_valid.sum(dtype=torch.int64)])[0])
+            st = stats.setdefault(lid, {"time_s": 0.0, "rows": 0, "calls": 0})
+            st["time_s"] += el
+            st["rows"] = rows
+            st["calls"] += 1
+            return batch, needs
+
+        return timed
+
+    def _build_node(self, plan: L.LogicalPlan):
         if isinstance(plan, L.Scan):
             return self._build_scan(plan)
 
@@ -1316,6 +1364,67 @@ class PhysicalExecutor:
         finally:
             self._depth -= 1
 
+    def run_analyze(self, plan: L.LogicalPlan) -> Tuple[Batch, Dicts, List[str]]:
+        """EXPLAIN ANALYZE: one instrumented run with per-node rows, time
+        and calls, as plan lines. It starts from the capacities an earlier
+        run of the same plan learned, so a warm plan runs each node once;
+        a node that overflows its tile re-runs and counts a second call.
+        A GROUP_CONCAT plan reduces on the host and reports the whole
+        statement's time; a plan the sizing would spill
+        (planner/streamed.py) is refused, since an instrumented whole-tile
+        pass of it would not fit."""
+        from tidb_tpu_torch.planner.hostagg import find_gc_agg, try_host_agg
+        from tidb_tpu_torch.planner.streamed import spill_path
+
+        if find_gc_agg(plan) is not None:
+            t0 = time.perf_counter()
+            out, dicts = try_host_agg(self, plan)
+            dt = (time.perf_counter() - t0) * 1000
+            lines = [
+                f"HostAssistedAggregate(GROUP_CONCAT)  time={dt:.2f}ms "
+                "(per-node stats unavailable on the host-assisted path)"
+            ]
+            return out, dicts, lines
+        why = spill_path(self, plan)
+        if why is not None:
+            raise NotImplementedError(
+                f"EXPLAIN ANALYZE of a statement that spills ({why}) is not ported yet")
+        names = [c.internal for c in plan.schema]
+        self.stream_log = []
+        for conservative in (False, True):
+            compiler = PlanCompiler(self.catalog, resolver=self._resolve,
+                                    conservative=conservative, device=self.device,
+                                    instrument=True)
+            cq = compiler.compile(plan)
+            known = self._cache.get(self._cache_key(plan))
+            if known is not None and known.caps and not conservative:
+                cq.caps = dict(known.caps)
+            try:
+                out = self._run_compiled(cq, names)
+                break
+            except StaleWidthsError:
+                if conservative:
+                    raise ExecError("packed key widths did not stabilize") from None
+        lines = []
+        for lid, depth, label in compiler.node_labels:
+            st = compiler.stats.get(lid)
+            suffix = (
+                f"  rows={st['rows']} time={st['time_s'] * 1000:.2f}ms calls={st['calls']}"
+                if st else ""
+            )
+            lines.append("  " * depth + label + suffix)
+        return out, cq.out_dicts, lines
+
+    def forget_tables(self, uids) -> None:
+        """Drop the compiled plans that scan any table of `uids` (a
+        recursive CTE's scratch tables, whose versions are never read
+        again)."""
+        uids = set(uids)
+        for k in [k for k in self._cache if any(v[2] in uids for v in k[1])]:
+            self._cache.pop(k, None)
+        for k in [k for k in self._stream_plans if any(v[2] in uids for v in k[0][1])]:
+            self._stream_plans.pop(k, None)
+
     def evict_stale(self, key: tuple) -> None:
         """Drop the compiled plan and every stream, partition and sort
         plan compiled for the plan under `key` (``_cache_key``): their
@@ -1430,6 +1539,34 @@ class PhysicalExecutor:
 # ---------------------------------------------------------------------------
 # shared helpers (also used by PlanCompiler)
 # ---------------------------------------------------------------------------
+
+
+def _node_label(plan: L.LogicalPlan) -> str:
+    """A plan node as EXPLAIN ANALYZE names it (the JAX package's
+    ``_node_label``)."""
+    name = type(plan).__name__
+    if isinstance(plan, L.Scan):
+        return f"Scan table={plan.db}.{plan.table} cols={len(plan.columns)}"
+    if isinstance(plan, L.Selection):
+        return f"Selection pred={plan.predicate!r}"
+    if isinstance(plan, L.Aggregate):
+        return (
+            f"Aggregate groups={[n for n, _ in plan.group_exprs]} "
+            f"aggs={[f'{f}({n})' for n, f, _, _ in plan.aggs]}"
+        )
+    if isinstance(plan, L.JoinPlan):
+        return f"Join kind={plan.kind} keys={len(plan.equi_keys)}"
+    if isinstance(plan, L.Sort):
+        return f"Sort keys={len(plan.keys)}"
+    if isinstance(plan, L.Window):
+        return f"Window funcs={[d[1] for d in plan.descs]} parts={len(plan.partition_exprs)}"
+    if isinstance(plan, L.Limit):
+        return f"Limit limit={plan.count} offset={plan.offset}"
+    if isinstance(plan, L.Projection):
+        return f"Projection exprs={[n for n, _ in plan.exprs]}" + (" +base" if plan.additive else "")
+    if isinstance(plan, L.UnionAll):
+        return f"UnionAll branches={len(plan.children)}"
+    return name
 
 
 def _top_rows(b: Batch, packed: torch.Tensor, kk: int) -> Batch:

@@ -563,6 +563,35 @@ def _chunk_feeds(executor, t, v, site, chunk_rows, chunk_tile, inputs_base, devi
         yield inputs
 
 
+def spill_path(executor, plan) -> Optional[str]:
+    """The spill path the executor's sizing would send `plan` down, named,
+    or None: the decisions of ``try_partitioned``, ``try_streamed`` and
+    ``try_streamed_sort`` taken without running anything."""
+    if not executor.stream_rows:
+        return None
+    m = _pipeline_below(plan)
+    if m is not None:
+        agg, scans, flags = m
+        big_i, resolved = _pick_big_scan(executor, scans, flags)
+        if _partition_spec(executor, agg, scans, flags, resolved) is not None:
+            return "grace hash"
+        if big_i is not None and _stream_sizing(
+                executor, scans, resolved, big_i, executor.stream_rows, P._MAX_CAP)[0] is not None:
+            return "a streamed aggregate"
+    node = plan
+    while isinstance(node, L.Projection):
+        node = node.child
+    if isinstance(node, L.Sort):
+        scans, flags = [], []
+        if _collect_pipeline_scans(node.child, scans, flags) and scans:
+            big_i, resolved = _pick_big_scan(executor, scans, flags)
+            if big_i is not None and _stream_sizing(
+                    executor, scans, resolved, big_i, executor.stream_rows,
+                    P._MAX_CAP)[0] is not None:
+                return "the host-merged ORDER BY"
+    return None
+
+
 def try_streamed(executor, plan, conservative=False, force=False):
     """Execute `plan` with a streamed aggregate when it qualifies: the
     lowest Aggregate over a streaming pipeline, with its largest

@@ -37,9 +37,14 @@ KEY, CHECK, generated columns, PARTITION BY, ALTER TABLE, indexes,
 views, sequences and temporary tables raise ``NotImplementedError``
 naming themselves, and so do the clauses whose effect is not ported yet:
 AS OF TIMESTAMP and a read under a non-zero ``tidb_read_staleness``
-(stale reads), WITH RECURSIVE, a statement under a non-zero
-``max_execution_time`` or a MAX_EXECUTION_TIME hint, and the
-information_schema tables. Setting either variable succeeds.
+(stale reads), a statement under a non-zero ``max_execution_time`` or a
+MAX_EXECUTION_TIME hint, and the information_schema tables. Setting
+either variable succeeds.
+
+WITH RECURSIVE materializes each recursive CTE step by step into a
+scratch table (``_run_recursive_with``); EXPLAIN renders the plan with
+estimated rows and EXPLAIN ANALYZE runs it once instrumented
+(``_run_explain``).
 
 One statement's work on a device runs at a time in a process
 (``statement_lock``): the scan cache, the transfer and launch counters
@@ -56,7 +61,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import fnmatch
+import itertools
 import math
 import operator
 import threading
@@ -87,6 +92,7 @@ from tidb_tpu_torch.dtypes import (
     time_to_micros,
 )
 from tidb_tpu_torch.expression.expr import Literal, _mysql_numeric_prefix, literal_type
+from tidb_tpu_torch.expression.hostfns import sql_like_match
 from tidb_tpu_torch.expression.kernels import compile_expr, string_expr
 from tidb_tpu_torch.parser import ast, parse
 from tidb_tpu_torch.planner import build_query
@@ -117,6 +123,10 @@ _UNPORTED = {
     ast.LoadData: "LOAD DATA",
     ast.RenameTable: "RENAME TABLE",
 }
+
+# process-unique names of recursive CTEs' scratch tables: the scratch
+# database is shared by every session of a catalog
+_cte_scratch_seq = itertools.count(1)
 
 _STATEMENT_LOCKS: Dict[str, threading.RLock] = {}
 _STATEMENT_LOCKS_GUARD = threading.Lock()
@@ -193,14 +203,56 @@ def _bind_ast_params(stmt, values) -> None:
     _walk_dataclasses(stmt, see)
 
 
-def _like_match(value: str, pattern: str) -> bool:
-    """SHOW ... LIKE: SQL LIKE over fnmatch, case-insensitive as in
-    MySQL (% -> *, _ -> ?, fnmatch's own metacharacters escaped)."""
-    pat = (
-        pattern.replace("[", "[[]").replace("*", "[*]").replace("?", "[?]")
-        .replace("%", "*").replace("_", "?")
-    )
-    return fnmatch.fnmatchcase(value.lower(), pat.lower())
+def _refs_table(node, name: str) -> bool:
+    """Does this AST subtree reference table ``name`` (unqualified)?"""
+    if isinstance(node, ast.TableRef):
+        if node.db is None and node.name.lower() == name.lower():
+            return True
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return any(_refs_table(getattr(node, f.name), name) for f in dataclasses.fields(node))
+    if isinstance(node, (list, tuple)):
+        return any(_refs_table(x, name) for x in node)
+    return False
+
+
+def _render_plan(plan, depth: int, out: List[str]) -> None:
+    """EXPLAIN's lines: one per node, indented by depth, with the
+    estimated rows ``est_rows`` annotated (the JAX package's
+    ``_render_plan``). The JAX package also prints the access path it
+    would take (a primary-key range, an index merge, pruned partitions);
+    the port scans whole tables and prints none."""
+    from tidb_tpu_torch.planner import logical as L
+
+    pad = "  " * depth
+    name = type(plan).__name__
+    detail = ""
+    if isinstance(plan, L.Scan):
+        detail = f" table={plan.db}.{plan.table} cols={len(plan.columns)}"
+    elif isinstance(plan, L.Selection):
+        detail = f" pred={plan.predicate!r}"
+    elif isinstance(plan, L.Aggregate):
+        detail = (f" groups={[n for n, _ in plan.group_exprs]}"
+                  f" aggs={[f'{f}({n})' for n, f, _, _ in plan.aggs]}")
+    elif isinstance(plan, L.JoinPlan):
+        detail = f" kind={plan.kind} keys={len(plan.equi_keys)}"
+        if plan.broadcast:
+            detail += f" broadcast={plan.broadcast}"
+    elif isinstance(plan, L.Sort):
+        detail = f" keys={len(plan.keys)}"
+    elif isinstance(plan, L.Limit):
+        detail = f" limit={plan.count} offset={plan.offset}"
+    elif isinstance(plan, L.Projection):
+        detail = f" exprs={[n for n, _ in plan.exprs]}{' +base' if plan.additive else ''}"
+    est = getattr(plan, "est", None)
+    if est is not None:
+        detail += f" est={est:.0f}"
+    out.append(pad + name + detail)
+    for attr in ("child", "left", "right"):
+        c = getattr(plan, attr, None)
+        if c is not None:
+            _render_plan(c, depth + 1, out)
+    for c in getattr(plan, "children", []) or []:
+        _render_plan(c, depth + 1, out)
 
 
 def _present(v, t: Optional[SQLType]):
@@ -273,6 +325,10 @@ class Session:
         # autocommit
         self._txn: Optional[dict] = None
         self.executor.table_hook = self._resolve_table_for_read
+        # one record per recursive CTE the last statement materialized:
+        # its name, steps, rows, and the seconds of its steps (the first
+        # and the slowest too)
+        self.cte_log: List[dict] = []
 
     def execute(self, sql: str) -> Result:
         res = Result([], [])
@@ -309,6 +365,8 @@ class Session:
         return res
 
     def _execute_stmt(self, s) -> Result:
+        if self._depth == 0:
+            self.cte_log = []
         self._depth += 1
         try:
             res = self._dispatch(s)
@@ -405,6 +463,8 @@ class Session:
         if isinstance(s, ast.DeallocateStmt):
             self.deallocate(s.name)
             return Result([], [])
+        if isinstance(s, ast.Explain):
+            return self._run_explain(s)
         raise NotImplementedError(f"{type(s).__name__} statements are not ported yet")
 
     def _check_ported(self, s) -> None:
@@ -421,23 +481,30 @@ class Session:
             what = "multi-table DELETE"
         if what is not None:
             raise NotImplementedError(f"{what} is not ported yet")
-        if isinstance(s, _READS + _DML + (ast.CreateTable,)):
+        if isinstance(s, _READS + _DML + (ast.CreateTable, ast.Explain)):
             why = self._unported_clause(s)
             if why is not None:
                 raise NotImplementedError(why)
 
     def _unported_clause(self, s) -> Optional[str]:
-        """Why `s` is refused, or None: the first clause the port would
-        ignore (WITH RECURSIVE, AS OF TIMESTAMP, an information_schema
-        table, a MAX_EXECUTION_TIME hint); a read under a non-zero
+        """Why `s` is refused, or None: a WITH RECURSIVE below the top of
+        a read, or the first clause the port would ignore (AS OF
+        TIMESTAMP, an information_schema table, a MAX_EXECUTION_TIME
+        hint); a read under a non-zero
         ``tidb_read_staleness`` (the JAX package applies it to top-level
         reads only); any statement under a non-zero
         ``max_execution_time``."""
         found = []
+        # a WITH RECURSIVE runs where a statement's read starts (the JAX
+        # package's _run_select); planned inside a subquery it would
+        # expand itself without end
+        top = {id(s), id(getattr(s, "query", None)), id(getattr(s, "as_query", None))}
 
         def see(n):
-            if isinstance(n, ast.With) and n.recursive:
-                found.append("WITH RECURSIVE is not ported yet")
+            if isinstance(n, ast.With) and n.recursive and id(n) not in top:
+                found.append("EXPLAIN of a WITH RECURSIVE is not supported"
+                             if isinstance(s, ast.Explain) else
+                             "WITH RECURSIVE inside a subquery is not supported")
             elif isinstance(n, ast.TableRef):
                 if n.as_of is not None:
                     found.append("AS OF TIMESTAMP is not ported yet")
@@ -500,7 +567,7 @@ class Session:
                 if self.catalog.has_table(db, tr.name):
                     self._check_priv("select", db, tr.name.lower())
 
-        if isinstance(s, _READS):
+        if isinstance(s, _READS + (ast.Explain,)):
             reads(s)
         elif isinstance(s, _DML):
             priv = {ast.Insert: "insert", ast.Update: "update", ast.Delete: "delete"}[type(s)]
@@ -573,7 +640,7 @@ class Session:
         if s.what == "variables":
             rows = []
             for name, val in self.vars.all().items():
-                if s.db is None or _like_match(name, s.db):
+                if s.db is None or sql_like_match(name, s.db, ci=True):
                     if isinstance(val, bool):
                         val = "ON" if val else "OFF"
                     rows.append((name, str(val)))
@@ -623,6 +690,8 @@ class Session:
 
     # -- SELECT --------------------------------------------------------
     def _run_select(self, s, ctes=None) -> Result:
+        if isinstance(s, ast.With) and s.recursive:
+            return self._run_recursive_with(s, ctes)
         if isinstance(s, ast.Select) and s.from_ is None:
             return self._run_tableless(s)
         plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
@@ -632,6 +701,146 @@ class Session:
             batch, dicts = self.executor.run(plan)
             rows = materialize_rows(batch, list(plan.schema), dicts)
         return Result(names, rows, types=[c.type for c in plan.schema])
+
+    # -- EXPLAIN -------------------------------------------------------
+    def _run_explain(self, s: ast.Explain) -> Result:
+        """EXPLAIN: the plan's nodes with their estimated rows. EXPLAIN
+        ANALYZE: one instrumented run (``PhysicalExecutor.run_analyze``)
+        with each node's rows, time and calls. The JAX package's
+        XLACompile row (XLA's compile cost analysis) has no counterpart
+        in eager torch and is not printed."""
+        from tidb_tpu_torch.planner.cardinality import est_rows
+
+        if not isinstance(s.stmt, (ast.Select, ast.Union, ast.With)):
+            raise ValueError("EXPLAIN supports SELECT/UNION/WITH")
+        plan = build_query(s.stmt, self.catalog, self.db, self._scalar_subquery)
+        if s.analyze:
+            _out, _dicts, lines = self.executor.run_analyze(plan)
+            return Result(["plan"], [(line,) for line in lines])
+        est_rows(plan, self.catalog)  # annotates .est on every node
+        lines: List[str] = []
+        _render_plan(plan, 0, lines)
+        return Result(["plan"], [(line,) for line in lines])
+
+    # -- recursive CTEs ------------------------------------------------
+    # Iterative materialization (reference: CTEExec's seed and recursive
+    # iteration, pkg/executor/cte.go:70): each recursive CTE is evaluated
+    # to a fixpoint into a scratch table, and the body plans against a
+    # plain SELECT over it. The JAX loop's `cte/iterate` failpoint is left
+    # out: failpoints are not ported.
+    @property
+    def _CTE_MAX_RECURSION(self) -> int:
+        # the cte_max_recursion_depth sysvar (MySQL's default 1000)
+        return int(self.vars.get("cte_max_recursion_depth") or 1000)
+
+    def _run_recursive_with(self, s, outer_ctes=None) -> Result:
+        """A WITH RECURSIVE read: each CTE that references itself is
+        materialized into a scratch table of the ``_cte_scratch``
+        database, dropped when the statement ends, whether it raised or
+        not. The scratch tables are written directly (no statement, no
+        table lock): nothing else can name them."""
+        merged = dict(outer_ctes or {})
+        scratch: List[Tuple[str, str]] = []
+        try:
+            for name, q in s.ctes:
+                if isinstance(q, ast.Union) and any(_refs_table(sel, name) for sel in q.selects):
+                    merged[name] = self._materialize_recursive(name, q, merged, scratch)
+                else:
+                    merged[name] = q
+            return self._run_select(s.body, merged)
+        finally:
+            dropped = [self.catalog.table(db, t) for db, t in scratch
+                       if self.catalog.has_table(db, t)]
+            self.executor.forget_tables([t.uid for t in dropped])
+            for t in dropped:
+                _scan.release(t)
+            for db, t in scratch:
+                self.catalog.drop_table(db, t, if_exists=True)
+
+    def _materialize_recursive(self, name, q, scope, scratch):
+        """Run the seed SELECTs, then the recursive ones over the working
+        table (the rows the last step added) until a step adds none,
+        appending each step's rows to the CTE's table. UNION (not ALL)
+        drops rows seen before. A step past ``cte_max_recursion_depth``
+        raises."""
+        seeds = [sel for sel in q.selects if not _refs_table(sel, name)]
+        steps = [sel for sel in q.selects if _refs_table(sel, name)]
+        if not seeds:
+            raise ValueError(f"recursive CTE {name!r} has no seed SELECT")
+        seed_ast = seeds[0] if len(seeds) == 1 else ast.Union(seeds, q.all)
+        r = self._run_select(seed_ast, dict(scope))
+        col_names = list(r.columns)
+        types = [
+            t if (t is not None and t.kind != Kind.NULL) else INT64
+            for t in (r.types or [INT64] * len(col_names))
+        ]
+        rows = list(r.rows)
+        seen = None
+        if not q.all:
+            seen, uniq = set(), []
+            for row in rows:
+                if row not in seen:
+                    seen.add(row)
+                    uniq.append(row)
+            rows = uniq
+
+        db = "_cte_scratch"
+        self.catalog.create_database(db, if_not_exists=True)
+        tname = f"{name}_{next(_cte_scratch_seq)}"
+        schema = TableSchema(list(zip(col_names, types)))
+        tbl = self.catalog.create_table(db, tname, schema)
+        scratch.append((db, tname))
+        if rows:
+            tbl.append_rows(rows)
+
+        # one working table for every step, its content replaced each time
+        wname = f"{tname}_w"
+        scratch.append((db, wname))
+        wt = self.catalog.create_table(db, wname, schema)
+        working = rows
+        ref_ast = ast.Select(
+            items=[ast.SelectItem(ast.Name(None, c), alias=c) for c in col_names],
+            from_=ast.TableRef(db, wname),
+        )
+        rec = {"cte": name, "steps": 0, "rows": len(rows), "seconds": 0.0,
+               "first_step_s": 0.0, "max_step_s": 0.0}
+        self.cte_log.append(rec)
+        while working:
+            t0 = time.perf_counter()
+            rec["steps"] += 1
+            if rec["steps"] > self._CTE_MAX_RECURSION:
+                raise ValueError(
+                    f"recursive CTE {name!r} exceeded {self._CTE_MAX_RECURSION} iterations")
+            wt.clear_rows()
+            wt.append_rows(working)
+            # the last step's columns and plans over the working table
+            # are never read again
+            _scan.invalidate(wt)
+            self.executor.forget_tables([wt.uid])
+            scope2 = dict(scope)
+            scope2[name] = ref_ast
+            new_rows = []
+            for st in steps:
+                new_rows.extend(self._run_select(st, scope2).rows)
+            if seen is not None:
+                fresh = []
+                for row in new_rows:
+                    if row not in seen:
+                        seen.add(row)
+                        fresh.append(row)
+                new_rows = fresh
+            if new_rows:
+                tbl.append_rows(new_rows)
+            working = new_rows
+            took = time.perf_counter() - t0
+            rec["rows"] += len(new_rows)
+            rec["seconds"] += took
+            rec["first_step_s"] = rec["first_step_s"] or took
+            rec["max_step_s"] = max(rec["max_step_s"], took)
+        return ast.Select(
+            items=[ast.SelectItem(ast.Name(None, c), alias=c) for c in col_names],
+            from_=ast.TableRef(db, tname),
+        )
 
     def _try_host_sorted(self, plan) -> Optional[List[Tuple]]:
         """A full ORDER BY too large for the device
@@ -1106,8 +1315,6 @@ class Session:
             ("TTL", s.ttl is not None),
             ("indexes in CREATE TABLE", s.indexes),
             ("generated columns", any(c.generated is not None for c in s.columns)),
-            ("ENUM, SET and JSON columns",
-             any(c.enum_members or c.set_members or c.is_json for c in s.columns)),
         ):
             if present:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -1117,7 +1324,9 @@ class Session:
             src = self.catalog.table(s.like[0] or self.db, s.like[1])
             if s.if_not_exists and self.catalog.has_table(db, s.name):
                 return Result([], [])
-            # the definition, not the data; AUTO_INCREMENT restarts
+            # the definition, not the data; AUTO_INCREMENT restarts. The
+            # JAX package clones through its rendered DDL, which carries
+            # no ENUM, SET or JSON domain, so neither does this
             pk = src.schema.primary_key
             t = self.catalog.create_table(db, s.name, TableSchema(
                 list(src.schema.columns), primary_key=list(pk) if pk else None,
@@ -1128,6 +1337,11 @@ class Session:
         schema = TableSchema(
             [(c.name.lower(), c.type) for c in s.columns],
             primary_key=[c.lower() for c in s.primary_key] or None,
+            enums={c.name.lower(): tuple(c.enum_members)
+                   for c in s.columns if c.enum_members} or None,
+            sets={c.name.lower(): tuple(c.set_members)
+                  for c in s.columns if c.set_members} or None,
+            json_cols=tuple(c.name.lower() for c in s.columns if c.is_json),
             not_null=tuple(c.name.lower() for c in s.columns if c.not_null),
         )
         auto = [c for c in s.columns if c.auto_increment]

@@ -3,7 +3,7 @@
 ``catalog_from_numpy`` builds the port's ``Catalog`` from tables given
 per column as (data, validity, string dictionary) arrays plus the
 schema's types and constraints, so both engines can load identical data
-and write to it alike. Types are the port's ``SQLType`` or a ``(kind,
+and write to it alike; ``add_table`` adds one such table to a catalog. Types are the port's ``SQLType`` or a ``(kind,
 scale, collation)`` tuple whose kind is a ``Kind`` value string ("int",
 "decimal", "string", ...). ``table_state`` reads a table's current
 state back as numpy from either package's ``Table``, so that tests can
@@ -39,29 +39,35 @@ def catalog_from_numpy(dbs: Dict[str, Dict[str, dict]]) -> Catalog:
     for db, tables in dbs.items():
         cat.create_database(db, if_not_exists=True)
         for name, spec in tables.items():
-            columns = [(n, sql_type(t)) for n, t in spec["columns"]]
-            schema = TableSchema(
-                columns, primary_key=spec.get("primary_key"),
-                not_null=tuple(spec.get("not_null") or ()),
-            )
-            cols = {}
-            for n, typ in columns:
-                data, valid, dictionary = spec["data"][n]
-                cols[n] = HostColumn(
-                    typ,
-                    np.array(data, dtype=typ.np_dtype),
-                    np.array(valid, dtype=bool),
-                    None if dictionary is None else np.array(dictionary, dtype=object),
-                )
-            t = cat.create_table(db, name, schema)
-            t.dictionaries.update(
-                {n: c.dictionary for n, c in cols.items() if c.dictionary is not None}
-            )
-            t.replace_blocks([HostBlock.from_columns(cols)] if cols else [])
-            t.defaults = dict(spec.get("defaults") or {})
-            t.autoinc_col = spec.get("autoinc_col")
-            t.autoinc_next = int(spec.get("autoinc_next", 1))
+            add_table(cat, db, name, spec)
     return cat
+
+
+def add_table(cat: Catalog, db: str, name: str, spec: dict):
+    """Create table `name` in `cat`'s database `db` from one table spec of
+    ``catalog_from_numpy`` (a string column's dictionary sorted, its codes
+    indexing it), as one block. Returns the table."""
+    columns = [(n, sql_type(t)) for n, t in spec["columns"]]
+    schema = TableSchema(
+        columns, primary_key=spec.get("primary_key"),
+        not_null=tuple(spec.get("not_null") or ()),
+    )
+    cols = {}
+    for n, typ in columns:
+        data, valid, dictionary = spec["data"][n]
+        cols[n] = HostColumn(
+            typ,
+            np.array(data, dtype=typ.np_dtype),
+            np.array(valid, dtype=bool),
+            None if dictionary is None else np.array(dictionary, dtype=object),
+        )
+    t = cat.create_table(db, name, schema)
+    t.dictionaries.update({n: c.dictionary for n, c in cols.items() if c.dictionary is not None})
+    t.replace_blocks([HostBlock.from_columns(cols)] if cols else [])
+    t.defaults = dict(spec.get("defaults") or {})
+    t.autoinc_col = spec.get("autoinc_col")
+    t.autoinc_next = int(spec.get("autoinc_next", 1))
+    return t
 
 
 def table_state(table) -> dict:

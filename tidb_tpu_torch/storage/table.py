@@ -7,8 +7,9 @@ current one, the one before it and pinned ones stay). String columns
 share one sorted dictionary per table: an append merges its strings in
 and remaps the codes of existing blocks when the dictionary grows.
 The PRIMARY KEY is enforced on every append (single-column and
-composite), NOT NULL on every block install. The plan compiler bakes
-per-version column facts into a program (``col_bounds``,
+composite), NOT NULL and the ENUM, SET and JSON value domains on every
+block install (once per dictionary entry a block uses). The plan compiler
+bakes per-version column facts into a program (``col_bounds``,
 ``col_has_nulls``).
 
 Partitions, ALTER, TTL, secondary indexes, CHECK and FOREIGN KEY
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -50,6 +52,13 @@ class TableSchema:
     # ordered (name, type); names stored lowercase
     columns: List[Tuple[str, SQLType]]
     primary_key: Optional[List[str]] = None
+    # value-domain constraints riding on the schema (the device type of
+    # all three is a dictionary-coded STRING): enums: column -> allowed
+    # values; sets: column -> allowed members (comma-joined subsets);
+    # json_cols: columns whose values must parse as JSON
+    enums: Optional[Dict[str, tuple]] = None
+    sets: Optional[Dict[str, tuple]] = None
+    json_cols: tuple = ()
     # columns declared NOT NULL (MySQL strict-mode write rejection; PK
     # columns are enforced separately on the key path)
     not_null: tuple = ()
@@ -229,7 +238,7 @@ class Table:
         """Append rows; returns (new version id, uids of the landed
         blocks)."""
         with self._lock:
-            self._check_not_null(block)
+            self._check_domains(block)
             block = self._align_dictionaries(block)
             self._check_unique(block)
             self.modify_count += block.nrows
@@ -243,6 +252,39 @@ class Table:
             c = block.columns.get(name)
             if c is not None and not bool(c.valid.all()):
                 raise ValueError(f"Column {name!r} cannot be null")
+
+    def _check_domains(self, block: HostBlock) -> None:
+        """NOT NULL, then ENUM/SET membership and JSON validity of every
+        dictionary entry the block's rows use (the JAX package's
+        ``_check_domains``, with its error text). NULL always passes."""
+        self._check_not_null(block)
+        sch = self.schema
+        if not (sch.enums or sch.sets or sch.json_cols):
+            return
+
+        def col_values(name):
+            c = block.columns.get(name)
+            if c is None or c.dictionary is None:
+                return []
+            used = np.unique(c.data[c.valid])
+            return [str(c.dictionary[i]) for i in used.tolist() if i < len(c.dictionary)]
+
+        for name, allowed in (sch.enums or {}).items():
+            for v in col_values(name):
+                if v not in allowed:
+                    raise ValueError(f"invalid ENUM value {v!r} for column {name}")
+        for name, allowed in (sch.sets or {}).items():
+            for v in col_values(name):
+                members = [m for m in v.split(",") if m]
+                if set(members) - set(allowed) or len(members) != len(set(members)):
+                    raise ValueError(f"invalid SET value {v!r} for column {name}")
+        for name in sch.json_cols:
+            for v in col_values(name):
+                try:
+                    json.loads(v)
+                except Exception:
+                    raise ValueError(
+                        f"invalid JSON value for column {name}: {v[:60]!r}") from None
 
     def _check_unique(self, block: HostBlock) -> None:
         """Duplicate-key check of the PRIMARY KEY, single- or
@@ -407,7 +449,7 @@ class Table:
         """Install a transaction's committed state (blocks, dictionaries
         and the AUTO_INCREMENT allocator) under one lock acquisition."""
         for b in blocks:
-            self._check_not_null(b)
+            self._check_domains(b)
         with self._lock:
             self.modify_count += int(modified_rows)
             self.dictionaries = dict(dictionaries)
@@ -419,7 +461,7 @@ class Table:
         `modified_rows`: the rows this replacement changed; None counts
         max(old, new)."""
         for b in blocks:
-            self._check_not_null(b)
+            self._check_domains(b)
         with self._lock:
             if modified_rows is None:
                 old = sum(b.nrows for b in self._versions[self.version])

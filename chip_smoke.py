@@ -8,6 +8,7 @@
     python3 chip_smoke.py --refresh-only   # phases 1-3 and the refresh phase only
     python3 chip_smoke.py --builtins-only  # phases 1-3 and the builtins phase only
     python3 chip_smoke.py --statements-only  # phases 1-3 and the statements phase only
+    python3 chip_smoke.py --operator-only  # phases 1-3 and the operator phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -110,6 +111,34 @@
    prints each statement's seconds and affected rows, each query's cold
    seconds, warm ms, host->device bytes and fetches, and each step's peak
    device memory, cached bytes by table and host RSS.
+   Then the operator phase, on the same tables: what a MySQL client and
+   its operator send around the queries. O1: over the wire, the tables'
+   rows from information_schema.tables, lineitem's 16 columns from
+   information_schema.columns (against bench/tpch.py's schema), SHOW
+   COLUMNS / CREATE TABLE / TABLE STATUS / COLLATION / CHARSET / ENGINES,
+   and a scratch table's SHOW INDEX, statistics and key_column_usage
+   rows. O2: CREATE USER with a password, GRANT SELECT; the user logs in,
+   runs Q6 and Q1 (checked), is refused an INSERT with the JAX package's
+   error; SHOW GRANTS, REVOKE (Q6 refused), DROP USER (login refused,
+   1045). O3: CREATE BINDING of Q18 to its STREAM_ROWS hint (about 8
+   chunks of lineitem), SHOW BINDINGS; Q18 cold once and warm three
+   times on the streamed path (chunks, chunk seconds and the gaps between
+   kill safepoints printed), then DROP BINDING and Q18 one tile. O4: the
+   streamed Q18 under max_execution_time (a third of its warm time), then
+   under the MAX_EXECUTION_TIME hint: each raises within the limit plus
+   the slowest chunk plus 0.5 s, and the re-run equals the oracle with
+   the device's allocation back within 1%. O5: connection A runs the
+   streamed Q18, B waits for it in SHOW PROCESSLIST and half its warm
+   time more, and sends KILL QUERY (both return while A runs); A's error comes within the slowest chunk
+   plus 0.5 s, its next Q18 equals the oracle, and KILL CONNECTION ends A.
+   O6: tidb_gc_life_time = 600, a timestamp, RF1's inserts (15,000
+   orders and their line items, one transaction), then Q1 and Q6 AS OF
+   the timestamp, the same under tidb_snapshot (an INSERT refused), Q1
+   current, and Q1 under a tidb_read_staleness that reaches back past the
+   insert: each against the oracle of its version, with its host->device
+   bytes. O7: INSERT IGNORE's warning in SHOW WARNINGS, DO, FLUSH TABLES,
+   OPTIMIZE TABLE orders (timed), SHOW STATUS, USE information_schema. It
+   prints the phase's seconds against its 150 s limit and its launches.
 7. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs phases 5 and 6 gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
@@ -135,17 +164,17 @@
    mode, chunks or partitions, why, seconds per stage), its resident
    bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
-   Phases 5, 6, the builtins, server and refresh phases and 8 each show
-   that every kernel launched there: launch counts are zeroed just before
-   a phase's runs and read just after them.
+   Phases 5, 6, the builtins, statements, server, refresh and operator
+   phases and 8 each show that every kernel launched there: launch counts
+   are zeroed just before a phase's runs and read just after them.
 
 With --kernels, phases 4-6 and 8 are skipped: phase 7 runs on inputs
 shaped as the main path's (TPC-H Q1's slot_sums lanes at SF10, the
 l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
---spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only
-and --statements-only generate and ANALYZE the SF10 tables and run that
-one phase. None of them prints the last line.
+--spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only,
+--statements-only and --operator-only generate and ANALYZE the SF10
+tables and run that one phase. None of them prints the last line.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -154,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import os
 import signal
@@ -845,6 +875,10 @@ def sf10_phases(args, seen, report) -> dict:
     # --- the refresh phase: writes over the same SF10 tables ---
     launches["refresh"] = refresh_phase(cat, sess, report)
 
+    # --- the operator phase: information_schema, SHOW, users, bindings,
+    # KILL and stale reads over the same SF10 tables ---
+    launches["operator"] = operator_phase(cat, sess, report)
+
     if args.profile:
         for name, sql, _check, qs in queries + slice6:
             profile_query(qs, name, sql, args.profile)
@@ -1173,12 +1207,14 @@ class WireError(Exception):
 
 class MysqlWire:
     """A raw-socket MySQL client on the port's protocol module (the card's
-    machine has no MySQL client package): the handshake as root,
-    COM_QUERY, COM_INIT_DB, COM_PING and the prepared-statement commands.
-    A resultset's packets are read whole before its rows are decoded by
-    their column types, so a statement's wire time is the server's."""
+    machine has no MySQL client package): the handshake (as root, or as a
+    user with a mysql_native_password password), COM_QUERY, COM_INIT_DB,
+    COM_PING and the prepared-statement commands. A resultset's packets
+    are read whole before its rows are decoded by their column types, so
+    a statement's wire time is the server's. ``conn_id`` is the
+    handshake's id; KILL takes the session's, CONNECTION_ID()."""
 
-    def __init__(self, port: int, db=None):
+    def __init__(self, port: int, db=None, user: str = "root", password=None):
         from tidb_tpu_torch.server import protocol as P
 
         self.P = P
@@ -1187,10 +1223,17 @@ class MysqlWire:
         greeting = self._read()
         assert greeting[0] == 0x0A, greeting
         self.conn_id = struct.unpack_from("<I", greeting, greeting.index(b"\x00", 1) + 1)[0]
+        auth = b""
+        if password is not None:
+            h1 = hashlib.sha1(password.encode()).digest()
+            mask = hashlib.sha1(P.scramble_from_handshake(greeting)
+                                + hashlib.sha1(h1).digest()).digest()
+            auth = bytes(a ^ b for a, b in zip(h1, mask))
         caps = P.CLIENT_PROTOCOL_41 | P.CLIENT_SECURE_CONNECTION
         if db:
             caps |= P.CLIENT_CONNECT_WITH_DB
-        body = struct.pack("<II", caps, 1 << 24) + bytes([0xFF]) + bytes(23) + b"root\x00\x00"
+        body = (struct.pack("<II", caps, 1 << 24) + bytes([0xFF]) + bytes(23)
+                + user.encode() + b"\x00" + bytes([len(auth)]) + auth)
         if db:
             body += db.encode() + b"\x00"
         self.io.write_packet(body)
@@ -2097,6 +2140,404 @@ def refresh_phase(cat, sess, report) -> dict:
     return dict(K.LAUNCHES)
 
 
+#: the operator phase's time limit (seconds), oracles included
+OPERATOR_LIMIT_S = 150.0
+#: O3-O5's Q18 streams lineitem in about this many chunks (STREAM_ROWS)
+OPERATOR_CHUNKS = 8
+#: the password O2's user logs in with
+ANALYST_PASSWORD = "op-pass-13"
+#: the columns the operator phase's oracles read (Q1, Q6 and Q18)
+OPERATOR_COLUMNS = {
+    "lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                 "l_returnflag", "l_linestatus", "l_shipdate"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"],
+    "customer": ["c_custkey"],
+}
+
+
+def capture_arrays(cat, columns) -> dict:
+    """{table: {column: array}} of the tables' current rows, every block
+    in order (strings as codes of the table's dictionary)."""
+    return {name: {c: np.concatenate([b.columns[c].data for b in cat.table("tpch", name).blocks()])
+                   for c in cols} for name, cols in columns.items()}
+
+
+def tpch_schema(name: str):
+    """A TPC-H table's schema as bench/tpch.py generates it (a tiny
+    draw of the same generator)."""
+    from tidb_tpu_torch.bench import tpch as G
+    from tidb_tpu_torch.storage import Catalog
+
+    c = Catalog()
+    G.load_tpch(c, sf=0.001, seed=0, tables=[name])
+    return c.table("tpch", name).schema
+
+
+def operator_phase(cat, sess, report) -> dict:
+    """The operator phase over the SF10 tables: what a MySQL client and
+    its operator send around the queries. O1 schema discovery over the
+    wire (information_schema, SHOW); O2 a read-only user and its grants;
+    O3 a binding that streams Q18; O4 max_execution_time and its hint;
+    O5 KILL from another connection; O6 stale reads around RF1's inserts;
+    O7 SHOW WARNINGS, DO, FLUSH, OPTIMIZE TABLE, SHOW STATUS and USE
+    information_schema. Every statement is checked on every run. Returns
+    the phase's kernel launches."""
+    import torch
+
+    from tidb_tpu_torch.bench import oracles as O
+    from tidb_tpu_torch.chunk import TRANSFERS
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.storage.table import set_gc_life
+    from tidb_tpu_torch.utils import collate
+    from tidb_tpu_torch.utils.sqlkiller import QueryKilled
+
+    out = report["operator"] = {}
+    t_phase = time.perf_counter()
+    log(f"operator: card {card_line()}")
+    K.reset_launches()
+    li_t = cat.table("tpch", "lineitem")
+    t0 = time.perf_counter()
+    ora = capture_arrays(cat, OPERATOR_COLUMNS)
+    ocat = oracle_catalog(cat, ora)
+    blk = ora["lineitem"]
+    o_q1 = O.numpy_q1(blk)
+    q18 = O.TPCH_QUERIES["q18"]
+    q18_params = O.spec_params("q18", SF)
+    q18_sql = q18.sql.format(**q18_params)
+    check_q18 = oracle_check(ocat, q18, q18_params)
+    log(f"operator: oracle arrays and Q1 in {time.perf_counter() - t0:.1f}s")
+
+    def timed(fn):
+        """(fn's result, its seconds up to the card's completion)"""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t1
+
+    srv = Server(cat, port=0)
+    srv.start_background()
+    conns = []
+    try:
+        # --- O1: schema discovery over the wire ---
+        t0 = time.perf_counter()
+        c = MysqlWire(srv.port, db="tpch")
+        conns.append(c)
+        names = cat.tables("tpch")
+        _cols, rows, _s = c.query("select table_name, table_rows from information_schema.tables "
+                                  "where table_schema = 'tpch' order by table_name")
+        want = [(n, cat.table("tpch", n).nrows) for n in names]
+        assert rows == want and len(rows) == 8, (rows, want)
+        li_schema = tpch_schema("lineitem")
+        _cols, rows, _s = c.query(
+            "select column_name, ordinal_position, data_type from information_schema.columns "
+            "where table_schema = 'tpch' and table_name = 'lineitem' order by ordinal_position")
+        want = [(n, i, repr(t).lower()) for i, (n, t) in enumerate(li_schema.columns, 1)]
+        # bench/tpch.py generates lineitem's 15 columns without l_comment
+        assert rows == want and len(rows) == 15, (rows, want)
+        _cols, rows, _s = c.query("show columns from lineitem")
+        assert [r[:4] for r in rows] == [(n, ty, "YES", "") for n, _i, ty in want], rows
+        _cols, rows, _s = c.query("show create table orders")
+        o_schema = tpch_schema("orders")
+        ddl = rows[0][1]
+        assert rows[0][0] == "orders" and "primary key (o_orderkey)" in ddl, rows
+        assert [ln.split("`")[1] for ln in ddl.splitlines()[1:] if "`" in ln] == o_schema.names, ddl
+        _cols, rows, _s = c.query("show table status like 'lineitem'")
+        assert len(rows) == 1 and rows[0][0] == "lineitem" and int(rows[0][4]) == li_t.nrows, rows
+        _cols, rows, _s = c.query("show collation like 'utf8mb4%'")
+        assert [r[0] for r in rows] == sorted(n for n in collate._REGISTRY if n.startswith("utf8mb4"))
+        _cols, rows, _s = c.query("show charset")
+        assert [r[0] for r in rows] == sorted(collate.CHARSET_DEFAULTS), rows
+        _cols, rows, _s = c.query("show engines")
+        assert [r[:2] for r in rows] == [("InnoDB", "DEFAULT")], rows
+        c.write("create table op_scratch (id bigint primary key, k bigint, v varchar(16))")
+        c.write("insert into op_scratch values (1, 10, 'a'), (2, 20, 'b')")
+        _cols, rows, _s = c.query("show index from op_scratch")
+        assert rows == [("op_scratch", "primary", "1", "id", "0")], rows
+        _cols, rows, _s = c.query("select * from information_schema.statistics "
+                                  "where table_name = 'op_scratch'")
+        assert rows == [("tpch", "op_scratch", "primary", 1, "id", 0)], rows
+        _cols, rows, _s = c.query("select * from information_schema.key_column_usage "
+                                  "where table_schema = 'tpch' order by table_name")
+        assert ("PRIMARY", "tpch", "op_scratch", "id", 1, None, None, None) in rows, rows
+        assert [r[2] for r in rows] == sorted(["customer", "nation", "op_scratch", "orders", "part",
+                                               "region", "supplier"]), rows
+        out["o1_s"] = time.perf_counter() - t0
+        log(f"operator O1: schema discovery over the wire in {out['o1_s']:.2f}s "
+            f"({len(names)} tables, lineitem {li_t.nrows} rows)")
+
+        # --- O2: a read-only user over the wire ---
+        t0 = time.perf_counter()
+        c.write(f"create user analyst identified by '{ANALYST_PASSWORD}'")
+        c.write("grant select on tpch.* to analyst")
+        a = MysqlWire(srv.port, db="tpch", user="analyst", password=ANALYST_PASSWORD)
+        conns.append(a)
+        _cols, rows, q6_s = a.query(O.Q6_SQL)
+        check_q6(types.SimpleNamespace(rows=rows), blk)
+        _cols, rows, q1_s = a.query(O.Q1_SQL)
+        check_q1(types.SimpleNamespace(rows=rows), o_q1, li_t)
+        try:
+            a.write("insert into region values (9, 'OPS', 'denied')")
+            raise AssertionError("analyst's INSERT was not refused")
+        except WireError as e:
+            assert e.message == "INSERT command denied to user 'analyst' for table tpch.region", e
+        _cols, rows, _s = c.query("show grants for analyst")
+        assert rows == [("GRANT SELECT ON tpch.* TO 'analyst'@'%'",)], rows
+        c.write("revoke select on tpch.* from analyst")
+        try:
+            a.query(O.Q6_SQL)
+            raise AssertionError("Q6 ran after REVOKE")
+        except WireError as e:
+            assert e.message.startswith("SELECT command denied to user 'analyst'"), e
+        c.write("drop user analyst")
+        try:
+            MysqlWire(srv.port, db="tpch", user="analyst", password=ANALYST_PASSWORD)
+            raise AssertionError("a dropped user logged in")
+        except WireError as e:
+            assert e.errno == 1045, e
+        out["o2"] = {"s": time.perf_counter() - t0, "q6_wire_s": q6_s, "q1_wire_s": q1_s}
+        log("operator O2: user, grants, refusals: " + json.dumps(out["o2"]))
+
+        # --- O3: a binding streams Q18 ---
+        t0 = time.perf_counter()
+        stream_rows = -(-li_t.nrows // OPERATOR_CHUNKS)
+        hinted = q18_sql.replace("select ", f"select /*+ STREAM_ROWS({stream_rows}) */ ", 1)
+        sess.execute(f"create binding for {q18_sql} using {hinted}")
+        assert len(sess.execute("show bindings").rows) == 1
+        checks = sess.killer.check
+        stamps = []
+
+        def stamped():
+            stamps.append(time.perf_counter())
+            checks()
+
+        sess.executor.kill_check = stamped
+        runs, gaps, chunk_s = [], [], []
+        try:
+            for i in range(4):
+                stamps.clear()
+                res, secs = timed(lambda: sess.execute(q18_sql))
+                end = time.perf_counter()
+                check_q18(res)
+                log_ = sess.executor.stream_log
+                assert log_ and all(r["path"] == "streamed" and r["chunks"] > 1 for r in log_), log_
+                runs.append(secs)
+                gaps.append(max(np.diff(stamps + [end])))
+                if i:  # the warm runs' chunks
+                    chunk_s.extend(s for r in log_ for s in r["chunk_s"])
+        finally:
+            sess.executor.kill_check = checks
+        slowest = max(chunk_s)
+        out["o3"] = {"stream_rows": stream_rows, "chunks": [r["chunks"] for r in log_],
+                     "cold_s": runs[0], "warm_s": runs[1:], "slowest_chunk_s": slowest,
+                     "longest_gap_between_safepoints_s": max(gaps[1:]),
+                     "safepoints": len(stamps)}
+        sess.execute(f"drop binding for {q18_sql}")
+        assert sess.execute("show bindings").rows == []
+        res = sess.execute(q18_sql)
+        check_q18(res)
+        assert sess.executor.stream_log == [], sess.executor.stream_log
+        out["o3"]["s"] = time.perf_counter() - t0
+        log("operator O3: binding, Q18 streamed: " + json.dumps(out["o3"]))
+
+        # --- O4: max_execution_time and its hint ---
+        t0 = time.perf_counter()
+        warm = float(np.median(runs[1:]))
+        m_ms = max(int(warm / 3 * 1000), 1)
+        bound = m_ms / 1000 + slowest + 0.5
+        o4 = out["o4"] = {"limit_ms": m_ms, "bound_s": bound}
+        for how, sql in (("variable", hinted),
+                         ("hint", hinted.replace("*/", f"MAX_EXECUTION_TIME({m_ms}) */", 1))):
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            if how == "variable":
+                sess.execute(f"set max_execution_time = {m_ms}")
+            t1 = time.perf_counter()
+            try:
+                sess.execute(sql)
+                raise AssertionError(f"Q18 ran past max_execution_time ({how})")
+            except QueryKilled as e:
+                took = time.perf_counter() - t1
+                assert str(e) == "query interrupted (max_execution_time exceeded)", e
+            sess.execute("set max_execution_time = 0")
+            assert took <= bound, (how, took, bound)
+            res = sess.execute(hinted)
+            check_q18(res)
+            torch.cuda.synchronize()
+            m1 = torch.cuda.memory_allocated()
+            assert abs(m1 - m0) <= 0.01 * m0, (how, m0, m1)
+            o4[how] = {"to_error_s": took, "memory_before": m0, "memory_after_rerun": m1}
+        o4["s"] = time.perf_counter() - t0
+        log("operator O4: max_execution_time: " + json.dumps(o4))
+
+        # --- O5: KILL from another connection ---
+        t0 = time.perf_counter()
+        a = MysqlWire(srv.port, db="tpch")
+        b = MysqlWire(srv.port, db="tpch")
+        conns += [a, b]
+        a_id = int(a.query("select connection_id()")[1][0][0])
+        # A's stream plan warm first, as O3's runs were: a cold first
+        # chunk discovers its capacities
+        check_q18(types.SimpleNamespace(rows=a.query(hinted)[1]))
+        got = {}
+
+        def run_a():
+            t1 = time.perf_counter()
+            try:
+                got["rows"] = a.query(hinted)[1]
+            except WireError as e:
+                got["error"] = e
+            got["at"] = time.perf_counter()
+            got["s"] = got["at"] - t1
+
+        th = threading.Thread(target=run_a)
+        th.start()
+        try:
+            listed = None
+            deadline = time.perf_counter() + 60
+            while listed is None and time.perf_counter() < deadline:
+                rows = b.query("show processlist")[1]
+                listed = next((r for r in rows if int(r[0]) == a_id and r[3] == "Query"
+                               and str(r[5]).startswith("select /*+ STREAM_ROWS")), None)
+                if listed is None:
+                    time.sleep(0.01)
+            assert listed is not None and th.is_alive(), "A's Q18 never showed in the processlist"
+            # into A's chunks: half its warm time after B saw it
+            time.sleep(warm / 2)
+            assert th.is_alive(), "A's Q18 ended before B's KILL"
+            t_kill = time.perf_counter()
+            b.write(f"kill query {a_id}")
+            kill_s = time.perf_counter() - t_kill
+            assert th.is_alive(), "KILL returned only after A's statement had ended"
+        finally:
+            th.join(timeout=600)
+        assert not th.is_alive()
+        err = got.get("error")
+        assert err is not None and err.message == "query interrupted (killed)", got
+        after_kill = got["at"] - t_kill
+        assert after_kill <= slowest + 0.5, (after_kill, slowest)
+        rows = a.query(hinted)[1]
+        check_q18(types.SimpleNamespace(rows=rows))
+        b.write(f"kill connection {a_id}")
+        try:
+            a.query("select 1")
+            raise AssertionError("a killed connection ran a statement")
+        except WireError as e:
+            assert e.message == f"connection {a_id} was killed", e
+        out["o5"] = {"kill_returned_s": kill_s, "a_ran_s": got["s"], "error_after_kill_s": after_kill,
+                     "bound_s": slowest + 0.5, "s": time.perf_counter() - t0}
+        log("operator O5: KILL over the wire: " + json.dumps(out["o5"]))
+    finally:
+        for conn in conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+        srv.shutdown()
+
+    # --- O6: stale reads around RF1's inserts ---
+    t0 = time.perf_counter()
+    sess.execute("set global tidb_gc_life_time = 600")
+    time.sleep(1.0)
+    ts0 = time.time()
+    time.sleep(1.0)
+    rf1 = rf1_data(cat, np.random.default_rng(13), SF, RF_ORDERS, 0)
+    t1 = time.perf_counter()
+    sess.execute("begin")
+    new_o, new_li = rf1["orders"], rf1["lineitem"]
+    for lo in range(0, RF_ORDERS, RF_BATCH):
+        sess.execute(insert_sql("orders", ORDERS_KINDS, new_o, lo, min(lo + RF_BATCH, RF_ORDERS)))
+    n_new = len(new_li["l_orderkey"])
+    for lo in range(0, n_new, RF_BATCH):
+        sess.execute(insert_sql("lineitem", LINEITEM_KINDS, new_li, lo, min(lo + RF_BATCH, n_new)))
+    sess.execute("commit")
+    insert_s = time.perf_counter() - t1
+    after = {n: dict(cols) for n, cols in ora.items()}
+    oracle_append(after, cat, rf1)
+    o_q1_after = O.numpy_q1(after["lineitem"])
+    stale = {"q1": lambda r: check_q1(r, o_q1, li_t), "q6": lambda r: check_q6(r, blk)}
+    fresh = {"q1": lambda r: check_q1(r, o_q1_after, li_t),
+             "q6": lambda r: check_q6(r, after["lineitem"])}
+    sqls = {"q1": O.Q1_SQL, "q6": O.Q6_SQL}
+    o6 = out["o6"] = {"insert_s": insert_s, "rows_inserted": n_new + RF_ORDERS, "runs": []}
+
+    def read(label, sql, check):
+        h0 = TRANSFERS["h2d_bytes"]
+        res, secs = timed(lambda: sess.execute(sql))
+        check(res)
+        o6["runs"].append([label, secs, TRANSFERS["h2d_bytes"] - h0])
+
+    as_of = f"from lineitem as of timestamp '{ts0}'"
+    for name in ("q1", "q6"):
+        read(f"{name} as of", sqls[name].replace("from lineitem", as_of), stale[name])
+    sess.execute(f"set tidb_snapshot = '{ts0}'")
+    for name in ("q1", "q6"):
+        read(f"{name} tidb_snapshot", sqls[name], stale[name])
+    try:
+        sess.execute("insert into region values (9, 'OPS', 'refused')")
+        raise AssertionError("a write ran under tidb_snapshot")
+    except ValueError as e:
+        assert str(e) == "can not execute write statement when 'tidb_snapshot' is set", e
+    sess.execute("set tidb_snapshot = ''")
+    read("q1 current", sqls["q1"], fresh["q1"])
+    read("q1 current, warm", sqls["q1"], fresh["q1"])
+    back = int(time.time() - ts0)
+    sess.execute(f"set tidb_read_staleness = -{back}")
+    read(f"q1 tidb_read_staleness -{back}", sqls["q1"], stale["q1"])
+    sess.execute("set tidb_read_staleness = 0")
+    read("q1 current again", sqls["q1"], fresh["q1"])
+    sess.execute("set global tidb_gc_life_time = 0")
+    set_gc_life(0)
+    o6["s"] = time.perf_counter() - t0
+    log("operator O6: stale reads (label, s, h2d bytes): " + json.dumps(o6))
+
+    # --- O7: the rest ---
+    t0 = time.perf_counter()
+    sess.execute("insert ignore into op_scratch values (null, 30, 'c')")
+    assert sess.execute("show warnings").rows == [("Warning", 1048, "Column 'id' cannot be null")]
+    sess.execute("do 1 + 1")
+    sess.execute("flush tables")
+    res, opt_s = timed(lambda: sess.execute("optimize table orders"))
+    assert res.rows[-1] == ("tpch.orders", "optimize", "status", "OK"), res.rows
+    (name, value), = sess.execute("show status like 'Threads_connected'").rows
+    assert name == "Threads_connected" and int(value) >= 1, value
+    sess.execute("use information_schema")
+    got = [r[0] for r in sess.execute("select schema_name from schemata order by schema_name").rows]
+    assert got == [d for d in cat.databases() if not d.startswith("_")], got
+    sess.execute("use tpch")
+    sess.execute("drop table op_scratch")
+    out["o7"] = {"optimize_orders_s": opt_s, "threads_connected": int(value),
+                 "s": time.perf_counter() - t0}
+    log("operator O7: " + json.dumps(out["o7"]))
+
+    launches = dict(K.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"operator: phase {out['seconds']:.1f}s of {OPERATOR_LIMIT_S:g}, launches {launches}")
+    return launches
+
+
+def operator_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the operator phase alone: the short
+    loop for session and server work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = operator_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the operator phase"
+    return launches
+
+
 def refresh_only(report) -> dict:
     """The SF10 tables, ANALYZEd, and the refresh phase alone: the short
     loop for write-path work. Returns the phase's launches."""
@@ -2137,6 +2578,9 @@ def main() -> int:
     ap.add_argument("--statements-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the statements phase only: no last line")
+    ap.add_argument("--operator-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the operator phase only: no last line")
     args = ap.parse_args()
 
     import torch
@@ -2186,6 +2630,10 @@ def main() -> int:
         return 0
     if args.statements_only:
         log(json.dumps({"statements": statements_only(report)}))
+        log(card)
+        return 0
+    if args.operator_only:
+        log(json.dumps({"operator": operator_only(report)}))
         log(card)
         return 0
     if not args.spill_only:

@@ -1,14 +1,13 @@
-"""The clauses the port parsed and then ignored (or refused without naming
-them), now refused by name until a later slice ports them: stale reads
-(AS OF TIMESTAMP, tidb_read_staleness), max_execution_time and the
-MAX_EXECUTION_TIME hint, and the information_schema tables. For each, the
-JAX package's Session answers the shape of its reference test file
-(test_staleread.py, test_ttl_autoinc.py::TestMaxExecutionTime,
-test_ddl_infoschema.py) and the port's raises ``NotImplementedError``
-naming the construct. WITH RECURSIVE (test_round2_features.py) is ported:
-its shapes here give the JAX package's rows in the port. Setting either
-variable succeeds in the port, and a statement the JAX package does not
-apply the clause to runs."""
+"""The clauses the port once parsed and then ignored (or refused without
+naming them), and that it refused by name until it ported them: stale
+reads (AS OF TIMESTAMP, tidb_read_staleness), max_execution_time and the
+MAX_EXECUTION_TIME hint, the information_schema tables (F1, F3, F4) and
+WITH RECURSIVE (F2). Each test keeps the name of the refusal it held and
+now holds the port's Session against the JAX package's on the shape of
+its reference test file (test_staleread.py,
+test_ttl_autoinc.py::TestMaxExecutionTime, test_ddl_infoschema.py,
+test_round2_features.py). The information_schema tables that stay refused
+are in tests/test_torch_show_infoschema.py."""
 
 import time
 
@@ -35,20 +34,30 @@ def sessions():
 
 
 def test_as_of_timestamp_is_refused(sessions):
+    """F1 is ported: AS OF TIMESTAMP reads the version of its time."""
     js, ts = sessions
     time.sleep(0.02)
     mid = time.time()
     time.sleep(0.02)
     for s in (js, ts):
         s.execute("insert into t values (2)")
-    assert js.execute(f"select count(*) from t as of timestamp {mid}").rows == [(1,)]
-    with pytest.raises(NotImplementedError, match="AS OF TIMESTAMP is not ported"):
-        ts.execute(f"select count(*) from t as of timestamp {mid}")
-    with pytest.raises(NotImplementedError, match="AS OF TIMESTAMP is not ported"):
-        ts.execute(f"select a from t where a in (select a from t as of timestamp {mid})")
+    for sql in (f"select count(*) from t as of timestamp {mid}",
+                f"select count(*) from t as of timestamp '{mid}'"):
+        assert js.execute(sql).rows == ts.execute(sql).rows == [(1,)]
+    # the subquery's reference and the outer one name one table at two
+    # versions: both packages refuse it rather than read one of them
+    sql = f"select a from t where a in (select a from t as of timestamp {mid})"
+    with pytest.raises(ValueError) as want:
+        js.execute(sql)
+    with pytest.raises(ValueError) as got:
+        ts.execute(sql)
+    assert str(got.value) == str(want.value)
+    assert "mixing AS OF TIMESTAMP" in str(got.value)
 
 
 def test_read_staleness_is_refused(sessions):
+    """tidb_read_staleness is ported: a top-level read goes back its
+    window; INSERT ... SELECT reads fresh data in both packages."""
     js, ts = sessions
     time.sleep(1.1)
     for s in (js, ts):
@@ -56,10 +65,7 @@ def test_read_staleness_is_refused(sessions):
         s.execute("create table dst (a int)")
         s.execute("set tidb_read_staleness = -1")
     assert js.execute("select count(*) from t").rows == [(1,)]
-    with pytest.raises(NotImplementedError, match="tidb_read_staleness"):
-        ts.execute("select count(*) from t")
-    # the SELECT half of INSERT ... SELECT reads fresh data in the JAX
-    # package: no staleness to ignore, so the port runs it
+    assert ts.execute("select count(*) from t").rows == [(1,)]
     for s in (js, ts):
         s.execute("insert into dst select a from t")
         s.execute("set tidb_read_staleness = 0")
@@ -83,40 +89,52 @@ def test_with_recursive_is_refused(sessions, sql, want):
 
 
 def test_max_execution_time_is_refused(sessions):
+    """F3 is ported: a statement within its limit runs in both packages."""
     js, ts = sessions
     hinted = "select /*+ MAX_EXECUTION_TIME(60000) */ count(*), sum(a) from t where a > 0"
-    assert js.execute(hinted).rows == [(1, 1)]
-    with pytest.raises(NotImplementedError, match="MAX_EXECUTION_TIME hint is not ported"):
-        ts.execute(hinted)
+    assert js.execute(hinted).rows == ts.execute(hinted).rows == [(1, 1)]
     for s in (js, ts):
         s.execute("set max_execution_time = 60000")
-    assert js.execute("select count(*), sum(a) from t where a > 0").rows == [(1, 1)]
-    for sql in ("select count(*), sum(a) from t where a > 0", "insert into t values (3)"):
-        with pytest.raises(NotImplementedError, match="max_execution_time is not ported"):
-            ts.execute(sql)
     for s in (js, ts):
+        assert s.execute("select count(*), sum(a) from t where a > 0").rows == [(1, 1)]
+        s.execute("insert into t values (3)")
         s.execute("set max_execution_time = 0")  # limit cleared: statements run
-        assert s.execute("select count(*) from t").rows == [(1,)]
+        assert s.execute("select count(*) from t").rows == [(2,)]
 
 
-def test_runaway_statement_is_killed_by_the_jax_package(sessions):
-    """TestMaxExecutionTime.test_runaway_killed's shape: the JAX package
-    kills a statement past its deadline; the port refuses to run it at
-    all rather than run it unbounded."""
+def test_runaway_statement_is_killed_by_the_jax_package(sessions, monkeypatch):
+    """TestMaxExecutionTime.test_runaway_killed's shape: both packages
+    kill a statement past its deadline with the same error. The JAX side
+    slows its scan with its failpoint, the port's with a patched scan
+    (failpoints are not ported)."""
     from tidb_tpu.utils import failpoint
-    from tidb_tpu.utils.sqlkiller import QueryKilled
+    from tidb_tpu.utils.sqlkiller import QueryKilled as JaxKilled
+    from tidb_tpu_torch.planner import physical
+    from tidb_tpu_torch.utils.sqlkiller import QueryKilled
 
     js, ts = sessions
     for s in (js, ts):
         s.execute("set max_execution_time = 1")
     failpoint.enable("storage/scan", lambda: time.sleep(0.05))
     try:
-        with pytest.raises(QueryKilled):
+        with pytest.raises(JaxKilled) as want:
             js.execute("select count(*), sum(a) from t where a > 1")
     finally:
         failpoint.disable("storage/scan")
-    with pytest.raises(NotImplementedError, match="max_execution_time"):
+    scan = physical.scan_table
+
+    def slow(*a, **k):
+        time.sleep(0.05)
+        return scan(*a, **k)
+
+    monkeypatch.setattr(physical, "scan_table", slow)
+    with pytest.raises(QueryKilled) as got:
         ts.execute("select count(*), sum(a) from t where a > 1")
+    assert str(got.value) == str(want.value) == "query interrupted (max_execution_time exceeded)"
+    monkeypatch.setattr(physical, "scan_table", scan)
+    for s in (js, ts):  # the session recovers
+        s.execute("set max_execution_time = 0")
+        assert s.execute("select count(*), sum(a) from t").rows == [(1, 1)]
 
 
 @pytest.mark.parametrize("sql", [
@@ -124,11 +142,12 @@ def test_runaway_statement_is_killed_by_the_jax_package(sessions):
     "select count(*) from information_schema.schemata where schema_name = 'app'",
 ])
 def test_information_schema_is_refused(sql):
+    """F4 is ported for the tables whose sources the port has."""
     js, ts = JaxSession(JaxCatalog()), Session(Catalog(), device="cpu")
     for s in (js, ts):
         s.execute("create database app")
         s.execute("create table app.users (id bigint primary key, nm varchar(8))")
         s.execute("insert into app.users values (1, 'a'), (2, 'b')")
-    assert js.execute(sql).rows in ([("users", 2)], [(1,)])
-    with pytest.raises(NotImplementedError, match="information_schema tables are not ported"):
-        ts.execute(sql)
+    want = js.execute(sql).rows
+    assert want in ([("users", 2)], [(1,)])
+    assert ts.execute(sql).rows == want

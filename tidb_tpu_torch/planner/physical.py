@@ -1268,6 +1268,10 @@ class PhysicalExecutor:
         # (db, table) -> (table, version) of the session's transaction
         # view; None reads the catalog's current versions
         self.table_hook = None
+        # the kill safepoint (utils/sqlkiller.SQLKiller.check): raises
+        # QueryKilled at each capacity-discovery attempt and streamed
+        # chunk once the statement is killed or past its deadline
+        self.kill_check = None
         self._depth = 0
 
     def _resolve(self, db: str, table: str):
@@ -1278,6 +1282,12 @@ class PhysicalExecutor:
             return self.table_hook(db, table)
         t = self.catalog.table(db, table)
         return t, t.version
+
+    def check_killed(self) -> None:
+        """A kill safepoint: a host test of the session's flag and
+        deadline, with no device synchronization."""
+        if self.kill_check is not None:
+            self.kill_check()
 
     def _cache_key(self, plan: L.LogicalPlan) -> tuple:
         versions = []
@@ -1315,6 +1325,7 @@ class PhysicalExecutor:
             # compiled for this statement only and never cached
             baked = has_staged(plan)
             for attempt in range(4):
+                self.check_killed()
                 # the last attempts compile with no runtime-verified
                 # assumptions, so even a permanently violated one terminates
                 conservative = attempt >= 2
@@ -1489,6 +1500,7 @@ class PhysicalExecutor:
                 w = max(cq.widths.get(nid, 64), 1)
                 caps[nid] = min(caps[nid], _cap_tile(max(share // (2 * w), 1024)))
         for _attempt in range(8):
+            self.check_killed()
             self._admit(cq, inputs, caps)
             out, needs = cq.fn(inputs, caps)
             nids = sorted(needs)

@@ -654,26 +654,30 @@ def try_streamed(executor, plan, conservative=False, force=False):
         executor, t, v, sp.big_site, chunk_rows, chunk_tile, inputs_base, device_resident,
         rec["seconds"],
     )
-    partials, cap = _drain_partials(sp, feeds, chunk_tile, P._MAX_CAP)
+    rec["chunk_s"] = []
+    partials, cap = _drain_partials(executor, sp, feeds, chunk_tile, P._MAX_CAP, rec["chunk_s"])
     rec["chunks"] = len(partials)
     rec["partial_rows"] = sum(b.capacity for b in partials)
     rec["seconds"]["chunks"] = time.perf_counter() - t0
     return _finalize_partials(executor, plan, agg, sp, partials, cap, rec, P._MAX_CAP)
 
 
-def _drain_partials(sp, feeds, default_tile, max_cap):
+def _drain_partials(executor, sp, feeds, default_tile, max_cap, chunk_s):
     """Run the pipeline and the partial aggregation over each chunk,
     growing capacity knobs on overflow as the executor's discovery does
     (one device->host fetch per try), and compact each chunk's partial
-    rows into a tile of their own. Returns (partial batches, the
-    partial group capacity)."""
+    rows into a tile of their own. Each chunk starts at a kill safepoint;
+    its host seconds, its feed included, are appended to `chunk_s`.
+    Returns (partial batches, the partial group capacity)."""
     cap = sp.agg_cap or 1024
     caps = dict(sp.caps) if sp.caps else {
         nid: (default_tile if d == 0 else d) for nid, d in sp.defaults.items()
     }
     peak = {}
     partials: List[Batch] = []
+    t_prev = time.perf_counter()
     for inputs in feeds:
+        executor.check_killed()
         for _retry in range(24):
             out, ng, needs = sp.chunk_step(inputs, cap, caps)
             nids = sorted(needs)
@@ -715,6 +719,9 @@ def _drain_partials(sp, feeds, default_tile, max_cap):
         keep = max(ngi, 1)
         partials.append(out if keep >= out.capacity else compact(out.cols, out.row_valid, keep))
         del out
+        now = time.perf_counter()
+        chunk_s.append(now - t_prev)
+        t_prev = now
     sp.caps = dict(caps)  # discovered capacities stick for reuse
     sp.agg_cap = cap
     return partials, cap
@@ -1202,7 +1209,9 @@ def try_partitioned(executor, plan, conservative=False, force=False):
             yield inputs
 
     t0 = time.perf_counter()
-    partials, cap = _drain_partials(sp, feeds(), max(tiles.values()), max_cap)
+    rec["chunk_s"] = []
+    partials, cap = _drain_partials(executor, sp, feeds(), max(tiles.values()), max_cap,
+                                    rec["chunk_s"])
     del assigns
     rec["chunks"] = len(partials)
     rec["partial_rows"] = sum(b.capacity for b in partials)
@@ -1377,6 +1386,7 @@ def try_streamed_sort(executor, plan, conservative=False):
         rec["seconds"],
     )
     for inputs in feeds:
+        executor.check_killed()
         for _retry in range(24):
             b, needs = sp.pipe_fn(inputs, caps)
             nids = sorted(needs)

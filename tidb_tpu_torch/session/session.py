@@ -10,13 +10,34 @@ plan as a literal. ANALYZE stores per-column statistics that the
 planner's join ordering reads.
 
 Session statements: SET of session, global and user variables (and SET
-NAMES / SET TRANSACTION, which only latch variables), USE, SHOW
-DATABASES / TABLES / VARIABLES [LIKE], FROM-less SELECT with ``@@``
-references and session functions (DATABASE(), CONNECTION_ID(), ...),
-PREPARE / EXECUTE / DEALLOCATE and their API (``prepare``,
-``execute_prepared``, ``deallocate``), and privilege checks for the
-session's user. ``tidb_mem_quota_query`` and ``tidb_tpu_stream_rows``
-reach the executor per statement.
+NAMES / SET TRANSACTION, which only latch variables), USE (also of
+information_schema), SHOW DATABASES / TABLES / VARIABLES / STATUS /
+WARNINGS / OPEN TABLES / TABLE STATUS / COLUMNS / INDEX / CREATE TABLE /
+CREATE DATABASE / COLLATION / CHARSET / ENGINES / PROCESSLIST / GRANTS /
+BINDINGS [LIKE], DO, FLUSH / LOCK / UNLOCK TABLES (no-ops), OPTIMIZE TABLE
+(which re-analyzes), FROM-less SELECT with ``@@`` references and session
+functions (DATABASE(), CONNECTION_ID(), ...), PREPARE / EXECUTE /
+DEALLOCATE and their API (``prepare``, ``execute_prepared``,
+``deallocate``), CREATE / DROP USER, GRANT / REVOKE and privilege checks
+for the session's user, and CREATE / DROP BINDING (a SELECT's digest ->
+hints). ``tidb_mem_quota_query`` and ``tidb_tpu_stream_rows`` reach the
+executor per statement; the STREAM_ROWS(n) hint for one statement.
+
+information_schema: ``tables``, ``columns``, ``schemata``,
+``statistics``, ``table_constraints`` and ``key_column_usage``
+(storage/catalog.py).
+
+Stale reads: ``AS OF TIMESTAMP``, ``tidb_snapshot`` (which also refuses
+writes) and ``tidb_read_staleness`` read a table's version of that time
+(``_resolve_table_for_read``), kept for ``tidb_gc_life_time``.
+
+Statement control: ``max_execution_time``, the MAX_EXECUTION_TIME hint
+and ``KILL [QUERY | CONNECTION] id`` (the id is the target Session's
+``conn_id``, CONNECTION_ID()) stop a running statement at its next
+safepoint (utils/sqlkiller.py: each capacity-discovery attempt and each
+streamed chunk) with ``QueryKilled``; a killed statement leaves no lock,
+pin or partial row behind. KILL and SHOW PROCESSLIST take no lock, so
+they reach a statement that holds the statement lock.
 
 Writes: CREATE/DROP DATABASE, CREATE TABLE (PRIMARY KEY, NOT NULL,
 DEFAULT, AUTO_INCREMENT, IF NOT EXISTS, ... LIKE, ... AS SELECT), DROP
@@ -34,12 +55,11 @@ for its statement. An autocommit DML that changed more than
 ``tidb_auto_analyze_ratio`` of a table re-analyzes it. REPLACE, ON
 DUPLICATE KEY UPDATE, LOAD DATA, multi-table UPDATE/DELETE, FOREIGN
 KEY, CHECK, generated columns, PARTITION BY, ALTER TABLE, indexes,
-views, sequences and temporary tables raise ``NotImplementedError``
-naming themselves, and so do the clauses whose effect is not ported yet:
-AS OF TIMESTAMP and a read under a non-zero ``tidb_read_staleness``
-(stale reads), a statement under a non-zero ``max_execution_time`` or a
-MAX_EXECUTION_TIME hint, and the information_schema tables. Setting
-either variable succeeds.
+views (and SHOW CREATE VIEW), sequences and temporary tables raise
+``NotImplementedError`` naming themselves, and so do the
+information_schema tables of those features (``views``, ``sequences``,
+``partitions``, ``referential_constraints``), its diagnostic tables and
+metrics_schema.
 
 WITH RECURSIVE materializes each recursive CTE step by step into a
 scratch table (``_run_recursive_with``); EXPLAIN renders the plan with
@@ -61,6 +81,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import datetime
 import itertools
 import math
 import operator
@@ -103,8 +124,14 @@ from tidb_tpu_torch.stats import analyze_table
 from tidb_tpu_torch.stats.handle import maybe_auto_analyze
 from tidb_tpu_torch.storage import Catalog, Table, TableSchema
 from tidb_tpu_torch.storage import scan as _scan
+from tidb_tpu_torch.storage.catalog import unported_virtual_table
 from tidb_tpu_torch.storage.locks import DeadlockError, next_txn_id
+from tidb_tpu_torch.storage.table import set_gc_life
+from tidb_tpu_torch.tools.dump import create_table_sql
+from tidb_tpu_torch.utils import collate as _coll
 from tidb_tpu_torch.utils.collate import CHARSET_DEFAULTS
+from tidb_tpu_torch.utils.metrics import sql_digest
+from tidb_tpu_torch.utils.sqlkiller import SQLKiller
 from tidb_tpu_torch.utils.sysvar import SysVars
 
 _READS = (ast.Select, ast.Union, ast.With, ast.SetOp)
@@ -329,10 +356,33 @@ class Session:
         # its name, steps, rows, and the seconds of its steps (the first
         # and the slowest too)
         self.cte_log: List[dict] = []
+        # KILL and max_execution_time: the executor polls the killer at
+        # its safepoints; cleared with the deadline per top-level statement
+        self.killer = SQLKiller()
+        self.executor.kill_check = self.killer.check
+        self._killed_conn = False  # KILL CONNECTION: every later statement raises
+        self.catalog._session_registry[self.conn_id] = self
+        # SHOW PROCESSLIST: (statement text, start) while one runs
+        self._current_stmt: Optional[tuple] = None
+        # the diagnostics area (SHOW WARNINGS): (Level, Code, Message),
+        # cleared by every statement but SHOW WARNINGS itself
+        self._warnings: List[tuple] = []
+        self._stmt_count = 0
+        self._select_count = 0
+        self._start_ts = time.time()
+        # stale reads: the statement's AS OF TIMESTAMP per (db, table),
+        # and whether tidb_read_staleness applies (a top-level read)
+        self._stmt_as_of: Dict[tuple, float] = {}
+        self._stale_ok = False
 
     def execute(self, sql: str) -> Result:
         res = Result([], [])
-        for s in parse(sql):
+        stmts = parse(sql)
+        for s in stmts:
+            if len(stmts) == 1:
+                # a single statement's text: its digest matches bindings
+                # and SHOW PROCESSLIST prints it
+                s._source_sql = sql
             res = self._run_top(s)
         return res
 
@@ -345,7 +395,11 @@ class Session:
         """One statement: the table locks it needs first, waiting
         outside the statement lock, then its execution inside it.
         Statement-scoped locks are released when it ends. EXECUTE binds
-        first, so that the bound statement takes its own locks here."""
+        first, so that the bound statement takes its own locks here. KILL
+        and SHOW PROCESSLIST touch host state only and take no lock: a
+        KILL must reach a statement that holds the statement lock."""
+        if self._killed_conn:
+            raise ConnectionError(f"connection {self.conn_id} was killed")
         if isinstance(s, ast.ExecuteStmt):
             vals = []
             for v in s.using:
@@ -354,6 +408,8 @@ class Session:
                 vals.append(self.user_vars[v])
             return self.execute_prepared(s.name, vals)
         self._check_ported(s)
+        if isinstance(s, ast.Kill) or (isinstance(s, ast.Show) and s.what == "processlist"):
+            return self._execute_stmt(s)
         release = self._take_locks(s)
         try:
             with statement_lock(self.device):
@@ -365,13 +421,16 @@ class Session:
         return res
 
     def _execute_stmt(self, s) -> Result:
-        if self._depth == 0:
-            self.cte_log = []
+        top = self._depth == 0
         self._depth += 1
         try:
+            if top:
+                self._begin_statement(s)
             res = self._dispatch(s)
         finally:
             self._depth -= 1
+            if top:
+                self._current_stmt = None
         if self._depth == 0 and isinstance(s, _DML):
             self._maybe_auto_analyze(s)
         if self._depth == 0:
@@ -382,6 +441,29 @@ class Session:
             else:
                 self._last_affected = int(res.affected)
         return res
+
+    def _begin_statement(self, s) -> None:
+        """A top-level statement's start (the JAX session's prologue):
+        its counters, the diagnostics area, its processlist entry, the
+        killer cleared with the statement's deadline, and the stale-read
+        state. ``tidb_read_staleness`` applies to a read only; an AS OF
+        inside a DML is refused rather than read fresh."""
+        self.cte_log = []
+        self._stmt_count += 1
+        if isinstance(s, _READS):
+            self._select_count += 1
+        if not (isinstance(s, ast.Show) and s.what == "warnings"):
+            self._warnings = []
+        limit_ms = int(self.vars.get("max_execution_time") or 0)
+        self.killer.clear(deadline=time.monotonic() + limit_ms / 1000.0 if limit_ms else 0.0)
+        self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
+        self._stale_ok = isinstance(s, _READS)
+        inner = s.stmt if isinstance(s, ast.Explain) else s
+        self._stmt_as_of = {}
+        if isinstance(inner, _READS):
+            self._stmt_as_of = self._collect_as_of(inner)
+        elif any(r.as_of is not None for r in ast.iter_table_refs(inner)):
+            raise ValueError("AS OF TIMESTAMP is only allowed in read-only statements")
 
     def _dispatch(self, s) -> Result:
         self._enforce_privileges(s)
@@ -425,9 +507,11 @@ class Session:
             analyze_table(self.catalog.table(s.db or self.db, s.name), device=self.device)
             return Result([], [])
         if isinstance(s, ast.UseDatabase):
-            if s.name.lower() not in self.catalog.databases():
+            name = s.name.lower()
+            if name not in ("information_schema", "metrics_schema") and (
+                    name not in self.catalog.databases()):
                 raise ValueError(f"unknown database {s.name}")
-            self.db = s.name.lower()
+            self.db = name
             return Result([], [])
         if isinstance(s, ast.Show):
             return self._run_show(s)
@@ -436,7 +520,53 @@ class Session:
                 self.user_vars[s.name.lstrip("@")] = s.value
             else:
                 self.vars.set(s.name, s.value, s.scope)
+                if s.name.lower() == "tidb_gc_life_time":
+                    # the storage GC horizon is engine-wide; the variable
+                    # is GLOBAL-only, so the global store holds the value
+                    set_gc_life(float(self.vars._globals.get("tidb_gc_life_time", 0)))
             return Result([], [])
+        if isinstance(s, ast.CreateUser):
+            self.catalog.users.create_user(s.name, s.password, s.if_not_exists)
+            return Result([], [])
+        if isinstance(s, ast.DropUser):
+            self.catalog.users.drop_user(s.name, s.if_exists)
+            return Result([], [])
+        if isinstance(s, ast.GrantStmt):
+            db = s.db if s.db else self.db
+            op = self.catalog.users.revoke if s.revoke else self.catalog.users.grant
+            op(set(s.privs), db, s.table, s.user)
+            return Result([], [])
+        if isinstance(s, ast.CreateBinding):
+            return self._run_binding(s)
+        if isinstance(s, ast.Kill):
+            target = self.catalog._session_registry.get(s.conn_id)
+            if target is None:
+                raise ValueError(f"unknown connection id {s.conn_id}")
+            # both forms stop the running statement at its next safepoint;
+            # KILL CONNECTION also ends the session: every later statement
+            # on it raises
+            target.killer.kill()
+            if not s.query_only:
+                target._killed_conn = True
+            return Result([], [])
+        if isinstance(s, ast.Do):
+            # evaluate and discard
+            self._run_select(self._resolve_session_funcs(ast.Select(
+                items=[ast.SelectItem(e, alias=f"_do{i}") for i, e in enumerate(s.exprs)],
+                from_=None)))
+            return Result([], [])
+        if isinstance(s, ast.Noop):
+            return Result([], [])  # FLUSH, LOCK TABLES, UNLOCK TABLES
+        if isinstance(s, ast.OptimizeTable):
+            rows = []
+            for db, name in s.tables:
+                db = db or self.db
+                self.catalog.table(db, name)  # existence check
+                self._dispatch(ast.AnalyzeTable(db, name))
+                rows.append((f"{db}.{name}", "optimize", "note",
+                             "Table does not support optimize, doing recreate + analyze instead"))
+                rows.append((f"{db}.{name}", "optimize", "status", "OK"))
+            return Result(["Table", "Op", "Msg_type", "Msg_text"], rows)
         if isinstance(s, ast.SetNames):
             # connector handshake (reference: pkg/executor/set.go
             # setCharset): latch the character_set_*/collation vars
@@ -479,6 +609,8 @@ class Session:
             what = "multi-table UPDATE"
         elif isinstance(s, ast.Delete) and s.targets is not None:
             what = "multi-table DELETE"
+        elif isinstance(s, ast.Show) and s.what == "create_view":
+            what = "views (SHOW CREATE VIEW)"
         if what is not None:
             raise NotImplementedError(f"{what} is not ported yet")
         if isinstance(s, _READS + _DML + (ast.CreateTable, ast.Explain)):
@@ -488,12 +620,9 @@ class Session:
 
     def _unported_clause(self, s) -> Optional[str]:
         """Why `s` is refused, or None: a WITH RECURSIVE below the top of
-        a read, or the first clause the port would ignore (AS OF
-        TIMESTAMP, an information_schema table, a MAX_EXECUTION_TIME
-        hint); a read under a non-zero
-        ``tidb_read_staleness`` (the JAX package applies it to top-level
-        reads only); any statement under a non-zero
-        ``max_execution_time``."""
+        a read, or a virtual table whose feature is not ported (an
+        information_schema table of views, sequences, partitions or
+        foreign keys, a diagnostic table, metrics_schema)."""
         found = []
         # a WITH RECURSIVE runs where a statement's read starts (the JAX
         # package's _run_select); planned inside a subquery it would
@@ -506,23 +635,12 @@ class Session:
                              if isinstance(s, ast.Explain) else
                              "WITH RECURSIVE inside a subquery is not supported")
             elif isinstance(n, ast.TableRef):
-                if n.as_of is not None:
-                    found.append("AS OF TIMESTAMP is not ported yet")
-                elif (n.db or self.db or "").lower() == "information_schema":
-                    found.append("information_schema tables are not ported yet")
-            elif isinstance(n, ast.Select) and any(
-                str(h[0]).lower() == "max_execution_time" for h in n.hints or ()
-            ):
-                found.append("the MAX_EXECUTION_TIME hint is not ported yet")
+                why = unported_virtual_table(n.db or self.db or "", n.name)
+                if why is not None:
+                    found.append(why)
 
         _walk_dataclasses(s, see)
-        if found:
-            return found[0]
-        if isinstance(s, _READS) and int(self.vars.get("tidb_read_staleness") or 0):
-            return "stale reads (tidb_read_staleness) are not ported yet"
-        if int(self.vars.get("max_execution_time") or 0):
-            return "max_execution_time is not ported yet"
-        return None
+        return found[0] if found else None
 
     def _apply_sysvars(self) -> None:
         """``tidb_mem_quota_query`` and ``tidb_tpu_stream_rows`` onto the
@@ -547,14 +665,30 @@ class Session:
                 f"for table {db}.{table}"
             )
 
+    def _require_super(self) -> None:
+        if not self.catalog.users.is_super(self.user):
+            raise PermissionError(f"user {self.user!r} lacks administrative privileges")
+
+    def _require_some_table_priv(self, db: str, name: str, what: str, extra: tuple = ()) -> None:
+        """MySQL's rule for metadata statements (SHOW CREATE / COLUMNS /
+        INDEX): any privilege on the table suffices."""
+        if self.catalog.users.is_super(self.user):
+            return
+        if not any(self.catalog.users.check(self.user, p, db.lower(), name.lower())
+                   for p in ("select", "insert", "update", "delete") + extra):
+            raise PermissionError(f"{what} denied to user {self.user!r} on {db}.{name}")
+
     def _enforce_privileges(self, s) -> None:
         """The JAX session's ``_enforce_privileges`` for the ported
         statements (reference: planbuilder's visitInfo, checked by
         pkg/privilege): SELECT on every catalog table a statement reads,
         INSERT / UPDATE / DELETE on a DML's target, CREATE and DROP for
-        DDL (DROP for TRUNCATE). Super users skip the walk; SET, SHOW,
-        USE, PREPARE and transaction control are unrestricted, and
-        EXECUTE checks the bound statement."""
+        DDL (DROP for TRUNCATE); CREATE/DROP USER, GRANT, REVOKE and
+        CREATE/DROP BINDING need a super user. Super users skip the walk;
+        SET, SHOW, USE, PREPARE, KILL and transaction control are
+        unrestricted (SHOW GRANTS FOR another user and the per-table SHOW
+        forms check inside ``_run_show``), and EXECUTE checks the bound
+        statement."""
         if self.catalog.users.is_super(self.user):
             return
 
@@ -588,6 +722,8 @@ class Session:
                 "create" if isinstance(s, ast.CreateDatabase) else "drop", s.name.lower())
         elif isinstance(s, ast.AnalyzeTable):
             self._check_priv("select", (s.db or self.db).lower(), s.name.lower())
+        elif isinstance(s, (ast.CreateUser, ast.DropUser, ast.GrantStmt, ast.CreateBinding)):
+            self._require_super()
 
     # -- session functions ---------------------------------------------
     def _resolve_session_funcs(self, node):
@@ -633,10 +769,92 @@ class Session:
 
     # -- SHOW ----------------------------------------------------------
     def _run_show(self, s: ast.Show) -> Result:
+        """The JAX session's ``_run_show``. SHOW ENGINES names the port's
+        engine in its comment (the JAX package names its XLA engine); every
+        other column is the same."""
+        pat = s.db or "%"
         if s.what == "tables":
             return Result(["Tables"], [(t,) for t in self.catalog.tables(self.db)])
         if s.what == "databases":
             return Result(["Databases"], [(d,) for d in self.catalog.databases()])
+        if s.what == "warnings":
+            return Result(["Level", "Code", "Message"], list(self._warnings))
+        if s.what == "open_tables":
+            return Result(["Database", "Table", "In_use", "Name_locked"], [])
+        if s.what == "status":
+            reg = self.catalog._session_registry
+            alive = sum(1 for cid in list(reg) if reg.get(cid) is not None)
+            stats = [
+                ("Uptime", int(time.time() - self._start_ts)),
+                ("Threads_connected", max(alive, 1)),
+                ("Questions", self._stmt_count),
+                ("Com_select", self._select_count),
+                ("Ssl_cipher", ""),
+            ]
+            return Result(["Variable_name", "Value"],
+                          [(k, str(v)) for k, v in stats if sql_like_match(k, pat, ci=True)])
+        if s.what == "create_database":
+            name = s.db.lower()
+            if name not in self.catalog.databases() and name != "information_schema":
+                raise ValueError(f"unknown database {s.db}")
+            return Result(["Database", "Create Database"], [(
+                name, f"CREATE DATABASE `{name}` /*!40100 DEFAULT CHARACTER SET utf8mb4 */")])
+        if s.what == "table_status":
+            cols = ["Name", "Engine", "Version", "Row_format", "Rows", "Avg_row_length",
+                    "Data_length", "Auto_increment", "Collation", "Comment"]
+            rows = []
+            for tn in sorted(self.catalog.tables(self.db)):
+                if not sql_like_match(tn, pat, ci=True):
+                    continue
+                t = self.catalog.table(self.db, tn)
+                n = t.nrows
+                width = sum(8 if ty.kind != Kind.STRING else 32 for _c, ty in t.schema.columns)
+                rows.append((tn, "tidb_tpu", 10, "Fixed", n, width, n * width,
+                             t.autoinc_next if t.autoinc_col else None, "utf8mb4_bin", ""))
+            return Result(cols, rows)
+        if s.what == "collation":
+            rows = [
+                (name, name.split("_")[0], i,
+                 "Yes" if name in CHARSET_DEFAULTS.values() else "", "Yes", 1,
+                 "PAD SPACE" if name.endswith("_ci") else "NO PAD")
+                for i, name in enumerate(sorted(_coll._REGISTRY), 1)
+                if sql_like_match(name, pat, ci=True)
+            ]
+            return Result(["Collation", "Charset", "Id", "Default", "Compiled", "Sortlen",
+                           "Pad_attribute"], rows)
+        if s.what == "charset":
+            maxlen = {"utf8mb4": 4, "utf8": 3, "utf8mb3": 3, "latin1": 1, "ascii": 1, "binary": 1}
+            rows = [(cs, f"{cs} (utf8 internal)", dflt, maxlen.get(cs, 4))
+                    for cs, dflt in sorted(CHARSET_DEFAULTS.items())
+                    if sql_like_match(cs, pat, ci=True)]
+            return Result(["Charset", "Description", "Default collation", "Maxlen"], rows)
+        if s.what == "engines":
+            return Result(
+                ["Engine", "Support", "Comment", "Transactions", "XA", "Savepoints"],
+                [("InnoDB", "DEFAULT",
+                  "tidb_tpu columnar CUDA engine (InnoDB-compatible surface)",
+                  "YES", "NO", "YES")])
+        if s.what == "bindings":
+            return Result(["Original_sql", "Bind_sql"],
+                          [(e["for_sql"], e["using_sql"]) for e in self.catalog.bindings.values()])
+        if s.what == "grants":
+            user = (s.db or self.user).lower()
+            if user != self.user.lower():
+                self._require_super()
+            return Result([f"Grants for {user}@%"],
+                          [(g,) for g in self.catalog.users.show_grants(user)])
+        if s.what == "processlist":
+            rows = []
+            reg = self.catalog._session_registry
+            for cid in sorted(reg):
+                other = reg.get(cid)  # weak: may vanish mid-walk
+                if other is None:
+                    continue
+                cur = other._current_stmt
+                rows.append((cid, other.user, other.db, "Query" if cur is not None else "Sleep",
+                             int(time.time() - cur[1]) if cur else 0,
+                             str(cur[0])[:100] if cur else None))
+            return Result(["Id", "User", "db", "Command", "Time", "Info"], rows)
         if s.what == "variables":
             rows = []
             for name, val in self.vars.all().items():
@@ -645,7 +863,25 @@ class Session:
                         val = "ON" if val else "OFF"
                     rows.append((name, str(val)))
             return Result(["Variable_name", "Value"], rows)
-        raise NotImplementedError(f"SHOW {s.what} is not ported yet")
+        # the per-table forms: columns, create_table, index
+        db, name = s.db.split(".", 1)
+        db = db or self.db
+        what = {"columns": "SHOW COLUMNS", "create_table": "SHOW CREATE",
+                "index": "SHOW INDEX"}[s.what]
+        self._require_some_table_priv(db, name, what, extra=("index",) if s.what == "index" else ())
+        t = self.catalog.table(db, name)
+        if s.what == "create_table":
+            return Result(["Table", "Create Table"],
+                          [(name.lower(), create_table_sql(t).rstrip(";"))])
+        pk = list(t.schema.primary_key or [])
+        if s.what == "index":
+            return Result(["Table", "Key_name", "Seq_in_index", "Column_name", "Non_unique"],
+                          [(name, "primary", i, cn, 0) for i, cn in enumerate(pk, 1)])
+        return Result(["Field", "Type", "Null", "Key", "Default"], [
+            (n, repr(ty).lower(), "NO" if n in pk else "YES", "PRI" if n in pk else "",
+             None if t.defaults.get(n) is None else str(t.defaults[n]))
+            for n, ty in t.schema.columns
+        ])
 
     # -- prepared statements -------------------------------------------
     def prepare(self, name: str, sql: str) -> None:
@@ -688,19 +924,69 @@ class Session:
         _bind_ast_params(s, values)
         return self._run_top(s)
 
+    # -- bindings ------------------------------------------------------
+    def _run_binding(self, s: ast.CreateBinding) -> Result:
+        """CREATE / DROP BINDING: a plain SELECT's digest -> the hints of
+        the USING statement (reference: pkg/bindinfo). The JAX package
+        also counts binding hits in its metrics registry; the port has no
+        registry yet."""
+        digest = sql_digest(s.for_sql)
+        if s.drop:
+            self.catalog.bindings.pop(digest, None)
+            return Result([], [])
+        if not isinstance(parse(s.for_sql)[0], ast.Select):
+            raise ValueError("bindings currently apply to plain SELECT statements only")
+        hints = tuple(getattr(parse(s.using_sql)[0], "hints", ()) or ())
+        if not hints:
+            raise ValueError("CREATE BINDING: the USING statement carries no /*+ ... */ hints")
+        self.catalog.bindings[digest] = {
+            "for_sql": s.for_sql, "using_sql": s.using_sql, "hints": hints,
+        }
+        return Result([], [])
+
+    def _apply_binding(self, s):
+        """A binding whose digest matches this statement's text injects
+        its hints."""
+        src = getattr(s, "_source_sql", None)
+        if not src or not self.catalog.bindings or not isinstance(s, ast.Select):
+            return s
+        entry = self.catalog.bindings.get(sql_digest(src))
+        if entry is not None:
+            s.hints = tuple(entry["hints"]) or s.hints
+        return s
+
     # -- SELECT --------------------------------------------------------
     def _run_select(self, s, ctes=None) -> Result:
+        """A read. Its hints hold for this statement only: STREAM_ROWS(n)
+        streams any aggregate input past n rows, MAX_EXECUTION_TIME(ms)
+        sets the statement's deadline from now."""
         if isinstance(s, ast.With) and s.recursive:
             return self._run_recursive_with(s, ctes)
         if isinstance(s, ast.Select) and s.from_ is None:
             return self._run_tableless(s)
-        plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
-        names = [c.name for c in plan.schema]
-        rows = self._try_host_sorted(plan)
-        if rows is None:
-            batch, dicts = self.executor.run(plan)
-            rows = materialize_rows(batch, list(plan.schema), dicts)
-        return Result(names, rows, types=[c.type for c in plan.schema])
+        s = self._apply_binding(s)
+        old_stream = self.executor.stream_rows
+        for name, args in getattr(s, "hints", ()) or ():
+            if name == "stream_rows" and args:
+                try:
+                    self.executor.stream_rows = int(args[0]) or None
+                except ValueError:
+                    pass
+            elif name == "max_execution_time" and args:
+                try:
+                    self.killer.deadline = time.monotonic() + int(args[0]) / 1000
+                except ValueError:
+                    pass
+        try:
+            plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
+            names = [c.name for c in plan.schema]
+            rows = self._try_host_sorted(plan)
+            if rows is None:
+                batch, dicts = self.executor.run(plan)
+                rows = materialize_rows(batch, list(plan.schema), dicts)
+            return Result(names, rows, types=[c.type for c in plan.schema])
+        finally:
+            self.executor.stream_rows = old_stream
 
     # -- EXPLAIN -------------------------------------------------------
     def _run_explain(self, s: ast.Explain) -> Result:
@@ -989,14 +1275,36 @@ class Session:
 
     # -- transaction plumbing ------------------------------------------
     def _resolve_table_for_read(self, db: str, name: str):
-        """(table, version) a scan reads: the transaction's shadow of a
-        table it wrote, else the snapshot pinned at the table's first
-        read in the transaction (every statement's newest committed
-        version under READ-COMMITTED), else the current version."""
+        """(table, version) a scan reads. A stale read first: the
+        statement's AS OF TIMESTAMP for the table, else ``tidb_snapshot``,
+        else a non-zero ``tidb_read_staleness`` on a top-level read (which
+        reads a table younger than its window at its oldest version);
+        each is refused inside a transaction, and information_schema
+        tables are never stale. Then the transaction's shadow of a table
+        it wrote, else the snapshot pinned at the table's first read in
+        the transaction (every statement's newest committed version under
+        READ-COMMITTED), else the current version."""
         t = self.catalog.table(db, name)
+        key = (db.lower(), name.lower())
+        as_of_ts = self._stmt_as_of.get(key)
+        if key[0] == "information_schema":
+            if as_of_ts is not None:
+                raise ValueError(f"AS OF TIMESTAMP is not supported on {key[0]} tables")
+            return t, t.version
+        clamp = False
+        if as_of_ts is None and self._txn is None:
+            as_of_ts = self._tidb_snapshot_ts()
+        if as_of_ts is None and self._txn is None and self._stale_ok:
+            staleness = int(self.vars.get("tidb_read_staleness") or 0)
+            if staleness < 0:
+                as_of_ts = time.time() + staleness
+                clamp = True
+        if as_of_ts is not None:
+            if self._txn is not None:
+                raise ValueError("stale read is not allowed inside a transaction")
+            return t, t.version_at(as_of_ts, clamp_oldest=clamp)
         if self._txn is None:
             return t, t.version
-        key = (db.lower(), name.lower())
         shadow = self._txn["shadows"].get(key)
         if shadow is not None:
             return shadow, shadow.version
@@ -1008,10 +1316,94 @@ class Session:
             self._txn["pin_objs"].append((t, t.version))
         return t, self._txn["pins"][key]
 
+    def _tidb_snapshot_ts(self) -> Optional[float]:
+        """Epoch seconds of the session's ``tidb_snapshot``, or None: an
+        epoch number, or a datetime literal in the session time zone."""
+        raw = self.vars.get("tidb_snapshot")
+        if raw in (None, "", 0):
+            return None
+        try:
+            return float(raw)
+        except (TypeError, ValueError):
+            dt = datetime.datetime.fromisoformat(str(raw))
+            if dt.tzinfo is None:
+                dt = dt.replace(tzinfo=self._session_tzinfo())
+            return dt.timestamp()
+
+    def _session_tzinfo(self):
+        """tzinfo of the ``time_zone`` variable: 'UTC' (the default),
+        '+HH:MM' / '-HH:MM' offsets, IANA names, or 'SYSTEM' (the host's).
+        Anything else raises: a literal read in the wrong zone would
+        shift every stale read by the offset."""
+        tz = str(self.vars.get("time_zone") or "UTC").strip()
+        up = tz.upper()
+        if up in ("UTC", "GMT"):
+            return datetime.timezone.utc
+        if up == "SYSTEM":
+            return datetime.datetime.now().astimezone().tzinfo
+        if tz and tz[0] in "+-":
+            try:
+                hh, _sep, mm = tz[1:].partition(":")
+                off = datetime.timedelta(hours=int(hh), minutes=int(mm or 0))
+                return datetime.timezone(-off if tz[0] == "-" else off)
+            except ValueError:
+                raise ValueError(f"Unknown or incorrect time zone: {tz!r}")
+        try:
+            import zoneinfo
+
+            return zoneinfo.ZoneInfo(tz)
+        except Exception:
+            raise ValueError(f"Unknown or incorrect time zone: {tz!r}")
+
+    def _collect_as_of(self, s) -> dict:
+        """The statement's AS OF TIMESTAMP table references: {(db,
+        table): epoch seconds}. A read resolves a table by name, so one
+        statement that names a table both stale and current, or at two
+        timestamps, is refused rather than read at one version."""
+        out: dict = {}
+        plain: set = set()
+
+        def ts_of(expr) -> float:
+            v = self._const_value(expr)
+            if isinstance(v, (int, float)):
+                return float(v)
+            if isinstance(v, str):
+                try:
+                    return float(v)
+                except ValueError:
+                    dt = datetime.datetime.fromisoformat(v)
+                    if dt.tzinfo is None:
+                        # a naive literal is in the session time zone
+                        # (version stamps are epoch seconds)
+                        dt = dt.replace(tzinfo=self._session_tzinfo())
+                    return dt.timestamp()
+            raise ValueError(f"cannot evaluate AS OF TIMESTAMP expression: {expr!r}")
+
+        for ref in ast.iter_table_refs(s):
+            key = ((ref.db or self.db).lower(), ref.name.lower())
+            if ref.as_of is None:
+                plain.add(key)
+            else:
+                ts = ts_of(ref.as_of)
+                if out.get(key, ts) != ts:
+                    raise ValueError(
+                        f"multiple AS OF TIMESTAMP values for table {key[1]!r} in one "
+                        "statement are not supported")
+                out[key] = ts
+        conflict = plain & set(out)
+        if conflict:
+            raise ValueError(
+                "mixing AS OF TIMESTAMP and current-version references to the same table "
+                f"{sorted(conflict)[0][1]!r} in one statement is not supported")
+        return out
+
     def _resolve_table_for_write(self, db: str, name: str) -> Table:
         """The table a write goes to: the catalog's under autocommit,
         else the transaction's shadow of it, made at its first write from
-        the pinned snapshot."""
+        the pinned snapshot. No write runs while ``tidb_snapshot`` is
+        set."""
+        if self._tidb_snapshot_ts() is not None:
+            raise ValueError("can not execute write statement when 'tidb_snapshot' is set")
         t = self.catalog.table(db, name)
         if self._txn is None:
             return t
@@ -1438,7 +1830,8 @@ class Session:
     def _fill_ignore_null_pk(self, t, names, rows):
         """INSERT IGNORE: a NULL in a PRIMARY KEY column takes the
         column's implicit default (0, '', the zero date), as MySQL does
-        under IGNORE; a kind with none drops the row."""
+        under IGNORE, with a warning (SHOW WARNINGS); a kind with none
+        drops the row."""
         pk = t.schema.primary_key
         if not pk or not rows:
             return rows
@@ -1456,6 +1849,8 @@ class Session:
                 for i, z in pk_idx:
                     if r[i] is None:
                         r[i] = z
+                        self._warnings.append(
+                            ("Warning", 1048, f"Column '{names[i]}' cannot be null"))
             fixed.append(r)
         return fixed
 

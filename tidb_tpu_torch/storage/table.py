@@ -214,6 +214,26 @@ class Table:
         for v in [v for v in self.version_ts if v not in self._versions]:
             del self.version_ts[v]
 
+    def version_at(self, ts: float, clamp_oldest: bool = False) -> int:
+        """Newest version published at or before `ts` that is still
+        readable (a stale read's version). Raises when that snapshot was
+        collected or predates the table, as the reference's 'GC life time
+        is shorter than transaction duration'. clamp_oldest: resolve to
+        the oldest retained version instead of raising, as
+        ``tidb_read_staleness`` does for a table younger than its window;
+        an explicit AS OF stays strict."""
+        with self._lock:
+            cands = [v for v, t0 in self.version_ts.items() if t0 <= ts and v in self._versions]
+            if not cands:
+                if clamp_oldest and self._versions:
+                    return min(self._versions)
+                raise ValueError(
+                    f"snapshot of {self.name!r} at ts {ts:.3f} is "
+                    "unavailable: older than the GC safepoint (raise "
+                    "tidb_gc_life_time) or before table creation"
+                )
+            return max(cands)
+
     def _publish(self, blocks: List[HostBlock]) -> int:
         """Install `blocks` as a new version. Caller holds the lock."""
         self.version += 1

@@ -7,16 +7,16 @@ connection time (pkg/server handshake + pkg/parser/auth). The engine
 keeps the same three grant scopes — global (*.*), database (db.*), table
 (db.t) — in a plain dict on the catalog; the wire-auth math is the
 standard mysql_native_password scramble. Cut to what a server and its
-sessions read: CREATE USER and GRANT's store operations, authentication
-and the checks; DROP USER, REVOKE, SHOW GRANTS and persisting the store
-belong to later slices.
+sessions read: CREATE USER, DROP USER, GRANT and REVOKE's store
+operations, authentication, the checks and SHOW GRANTS' lines;
+persisting the store belongs to a later slice.
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
-from typing import Dict, Optional, Set
+from typing import Dict, List, Optional, Set
 
 #: grantable privileges (subset of the reference's Priv bitmask,
 #: pkg/parser/mysql/privs.go)
@@ -76,6 +76,17 @@ class UserStore:
                 "grants": {},
             }
 
+    def drop_user(self, name: str, if_exists: bool = False) -> None:
+        name = name.lower()
+        with self._lock:
+            if name not in self.users:
+                if if_exists:
+                    return
+                raise ValueError(f"unknown user {name!r}")
+            if name == "root":
+                raise ValueError("cannot drop root")
+            del self.users[name]
+
     def grant(
         self, privs: Set[str], db: str, table: str, user: str
     ) -> None:
@@ -89,6 +100,29 @@ class UserStore:
             scope = (db.lower(), table.lower())
             g = self.users[user]["grants"].setdefault(scope, set())
             g |= privs
+
+    def revoke(
+        self, privs: Set[str], db: str, table: str, user: str
+    ) -> None:
+        user = user.lower()
+        bad = {p for p in privs if p not in PRIVS and p != "all"}
+        if bad:
+            raise ValueError(f"unknown privileges {sorted(bad)}")
+        with self._lock:
+            if user not in self.users:
+                raise ValueError(f"unknown user {user!r}")
+            scope = (db.lower(), table.lower())
+            g = self.users[user]["grants"].get(scope)
+            if g:
+                if "all" in privs:
+                    g.clear()
+                else:
+                    if "all" in g:
+                        # expand ALL so revoking one privilege actually
+                        # removes it (not a silent no-op)
+                        g.discard("all")
+                        g |= PRIVS
+                    g -= privs
 
     # -- checks --------------------------------------------------------
     def authenticate(
@@ -124,3 +158,23 @@ class UserStore:
         with self._lock:
             u = self.users.get(user.lower())
             return bool(u and "all" in u["grants"].get(("*", "*"), set()))
+
+    def show_grants(self, user: str) -> List[str]:
+        user = user.lower()
+        with self._lock:
+            u = self.users.get(user)
+            if u is None:
+                raise ValueError(f"unknown user {user!r}")
+            out = []
+            for (db, tbl), privs in sorted(u["grants"].items()):
+                if not privs:
+                    continue
+                pl = (
+                    "ALL PRIVILEGES"
+                    if "all" in privs
+                    else ", ".join(sorted(p.upper() for p in privs))
+                )
+                out.append(f"GRANT {pl} ON {db}.{tbl} TO '{user}'@'%'")
+            if not out:
+                out.append(f"GRANT USAGE ON *.* TO '{user}'@'%'")
+            return out

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --statements-only  # phases 1-3 and the statements phase only
     python3 chip_smoke.py --operator-only  # phases 1-3 and the operator phase only
     python3 chip_smoke.py --indexes-only   # phases 1-3 and the index phase only
+    python3 chip_smoke.py --constraints-only  # phases 1-3 and the constraint phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -164,6 +165,35 @@
    prints its seconds, host->device bytes, narrowed reads (rows, host
    seconds), index sorts and full garbage collections; the phase its
    seconds against its 120 s limit and its launches.
+   Then the constraint phase (database tpch_c, dropped at its end): C1,
+   the eight tables declared with their tpch columns and primary keys,
+   TPC-H clause 1.4.2's single-column FOREIGN KEYs (lineitem's order key
+   ON DELETE CASCADE, orders' customer key ON DELETE SET NULL) and clause
+   1.4.2.4's CHECKs, filled with the tpch tables' blocks (lineitem's
+   l_receiptdate derived by clause 4.2.3's rule where the generator drew
+   it before l_shipdate), each CHECK's violating rows and each FK's
+   orphans counted in SQL and numpy (0), SHOW CREATE TABLE of lineitem
+   and information_schema.referential_constraints; C2, RF1's 15,000
+   orders and their line items written under the constraints by INSERT
+   ... SELECT from tables staged through the storage layer (and, for the
+   constraints' share, into copies without them), then Q1;
+   C3, an FK, a CHECK, a RESTRICT DELETE, a CHECK on a columnar UPDATE
+   and a DROP TABLE of a referenced table, each refused with the JAX
+   package's error and the tables' counts and sums unchanged, INSERT
+   IGNORE of 1,000 line items keeping the 900 that pass, and a
+   constrained UPDATE of l_discount on the columnar path against numpy;
+   C4, RF2 as one DELETE of 15,000 orders cascading to their line items,
+   then Q1, Q3 and Q18, and a DELETE of 100 customers that sets their
+   orders' o_custkey NULL, then Q13; C5, TPC-H Q15 as the specification
+   writes it, over a view on the tpch tables, cold once and warm three
+   times beside the CTE form, a view over that view, SHOW CREATE VIEW,
+   information_schema.views and a view over tpch_c.lineitem after the
+   cascade; C6, a stored generated column added to supplier (the
+   backfill), its GROUP BY against numpy, an INSERT that computes it, a
+   columnar UPDATE that recomputes it and an INSERT that writes it,
+   refused. Each step prints its seconds, its statements' seconds,
+   host->device bytes and launches; the phase its seconds against its
+   120 s limit.
 7. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs phases 5 and 6 gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
@@ -179,7 +209,8 @@
    the late-receipt report R1 (oracles.SPILL_REPORTS: a full ORDER BY of
    ~1M rows, no LIMIT) and Q1 under TiDB's default 1 GiB memory quota
    (tidb_mem_quota_query, the executor's quota_bytes): each cold once and
-   warm three times, each run checked against the numpy oracles. Each
+   warm once (SPILL_WARM_RUNS), each run checked against the numpy
+   oracles. Each
    exceeds the port's one-tile limit, so the executor's sizing sends it
    down a spill path (planner/streamed.py): Q18 and Q1 stream with their
    columns on the device, Q21 takes grace hash (its EXISTS and NOT EXISTS
@@ -189,8 +220,9 @@
    mode, chunks or partitions, why, seconds per stage), its resident
    bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
-   Phases 5, 6, the builtins, statements, server, refresh, operator and
-   index phases and 8 each show that every kernel launched there: launch counts
+   Phases 5, 6, the builtins, statements, server, refresh, operator,
+   index and constraint phases and 8 each show that every kernel launched
+   there: launch counts
    are zeroed just before a phase's runs and read just after them.
 
 With --kernels, phases 4-6 and 8 are skipped: phase 7 runs on inputs
@@ -198,8 +230,8 @@ shaped as the main path's (TPC-H Q1's slot_sums lanes at SF10, the
 l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
 --spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only,
---statements-only, --operator-only and --indexes-only generate and
-ANALYZE the SF10 tables and run that one phase. None of them prints the last line.
+--statements-only, --operator-only, --indexes-only and --constraints-only
+generate and ANALYZE the SF10 tables and run that one phase. None of them prints the last line.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -219,6 +251,7 @@ import sys
 import threading
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -429,18 +462,23 @@ def raw_columns(cat, names):
     return {n: b.columns[n].data for n in names}, t
 
 
-def q1_check(blk, t):
-    """A check of Q1's rows against numpy_q1, computed on first use and
-    kept for the query's later runs."""
+def q1_check(blk, t, pool=None):
+    """A check of Q1's rows against numpy_q1, computed on first use (on
+    `pool` from now on, when given) and kept for the query's later runs."""
     from tidb_tpu_torch.bench.oracles import numpy_q1
 
+    def compute():
+        t0 = time.perf_counter()
+        o = numpy_q1(blk)
+        log(f"  oracle: Q1 in {time.perf_counter() - t0:.1f}s")
+        return o
+
+    fut = pool.submit(compute) if pool is not None else None
     oracle = []
 
     def check(res):
         if not oracle:
-            t0 = time.perf_counter()
-            oracle.append(numpy_q1(blk))
-            log(f"  oracle: Q1 in {time.perf_counter() - t0:.1f}s")
+            oracle.append(fut.result() if fut is not None else compute())
         check_q1(res, oracle[0], t)
 
     return check
@@ -530,21 +568,36 @@ def check_q5(res, cat):
     assert [tuple(r) for r in res.rows] == want, (res.rows, want)
 
 
-def oracle_check(cat, q, params):
+def oracle_check(cat, q, params, pool=None):
     """A check of a TPCH_QUERIES result against its oracle, computed on
-    first use and kept for the query's later runs."""
+    first use (on `pool` from now on, when given) and kept for the
+    query's later runs."""
     from tidb_tpu_torch.bench.oracles import check_rows
 
+    def compute():
+        t0 = time.perf_counter()
+        rows = q.oracle(cat, **params)
+        log(f"  oracle: {len(rows)} rows in {time.perf_counter() - t0:.1f}s")
+        return rows
+
+    fut = pool.submit(compute) if pool is not None else None
     want = []
 
     def check(res):
         if not want:
-            t0 = time.perf_counter()
-            want.append(q.oracle(cat, **params))
-            log(f"  oracle: {len(want[0])} rows in {time.perf_counter() - t0:.1f}s")
+            want.append(fut.result() if fut is not None else compute())
         check_rows(res.rows, want[0], q.order, q.limit)
 
     return check
+
+
+def oracles_first(pool, what: str, threads: int) -> None:
+    """Wait for the oracles submitted to `pool` (numpy releases the
+    interpreter lock in its passes, so they run side by side), before a
+    phase's timed runs: no oracle shares the host with a timed query."""
+    t0 = time.perf_counter()
+    pool.shutdown(wait=True)
+    log(f"{what}: oracles in {time.perf_counter() - t0:.1f}s on {threads} threads")
 
 
 def profile_query(sess, name, sql, out_dir) -> None:
@@ -702,11 +755,11 @@ def q95_check(cat):
     return check
 
 
-def run_phase(queries, report, base_table, before=None) -> dict:
-    """Run each (name, sql, check, session) cold once and warm three
-    times, checking every run, and add its numbers to `report`. Kernel
-    launch counts are zeroed just before the phase and returned as read
-    just after it."""
+def run_phase(queries, report, base_table, before=None, warm_runs=3) -> dict:
+    """Run each (name, sql, check, session) cold once and warm
+    `warm_runs` times, checking every run, and add its numbers to
+    `report`. Kernel launch counts are zeroed just before the phase and
+    returned as read just after it."""
     import torch
 
     from tidb_tpu_torch.chunk import TRANSFERS
@@ -730,7 +783,7 @@ def run_phase(queries, report, base_table, before=None) -> dict:
         peaks = [torch.cuda.max_memory_allocated()]
         warm = []
         f0, h0 = TRANSFERS["d2h_fetches"], TRANSFERS["h2d_bytes"]
-        for _ in range(3):
+        for _ in range(warm_runs):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = qs.execute(sql)
@@ -756,8 +809,8 @@ def run_phase(queries, report, base_table, before=None) -> dict:
             "resident_before": resident,
             # allocated after the cold run and after each warm run
             "resident_after": after,
-            "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / 3,
-            "h2d_bytes_per_warm_run": (TRANSFERS["h2d_bytes"] - h0) / 3,
+            "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / warm_runs,
+            "h2d_bytes_per_warm_run": (TRANSFERS["h2d_bytes"] - h0) / warm_runs,
             # the last run's spill records (streamed aggregates, grace-hash
             # pipelines, host-merged ORDER BYs), and each run's (path, mode)
             "stream": qs.executor.stream_log,
@@ -787,6 +840,13 @@ SPILL_COLUMNS = {
 }
 #: TiDB's default tidb_mem_quota_query (1 GiB), the quota'd Q1's
 SPILL_QUOTA = 1 << 30
+#: warm runs of each SF100 statement after its cold run
+SPILL_WARM_RUNS = 1
+#: threads the numpy oracles run on before a phase's timed runs: SF10's
+#: each take at most a few GB; SF100's Q18 oracle alone ~15 GB, with
+#: ~47 GB of the host free after the SF100 data
+ORACLE_THREADS = 4
+SPILL_ORACLE_THREADS = 3
 
 
 def host_memory() -> str:
@@ -845,15 +905,19 @@ def sf10_phases(args, seen, report) -> dict:
 
     # --- 5. main path: TPC-H ---
     sess = Session(cat, db="tpch")
-    queries = [("q1", Q1_SQL, q1_check(blk, li)),
+    pool = ThreadPoolExecutor(ORACLE_THREADS)
+    queries = [("q1", Q1_SQL, q1_check(blk, li, pool)),
                ("q6", Q6_SQL, lambda r: check_q6(r, blk)),
                ("l_suppkey", SUPPKEY_SQL, lambda r: check_suppkey(r, blk)),
                ("q3", Q3_SQL, lambda r: check_q3(r, cat)),
                ("q5", Q5_SQL, lambda r: check_q5(r, cat))]
     for name, q in TPCH_QUERIES.items():
         params = spec_params(name, SF)
-        queries.append((name, q.sql.format(**params), oracle_check(cat, q, params)))
+        queries.append((name, q.sql.format(**params), oracle_check(cat, q, params, pool)))
     queries = [(name, sql, check, sess) for name, sql, check in queries]
+    slice6 = [(name, q.sql, oracle_check(cat, q, {}, pool), sess)
+              for name, q in REPORT_QUERIES.items()]
+    oracles_first(pool, f"TPC-H SF{SF:g} and the reports", ORACLE_THREADS)
 
     def analyze_first(name):
         if name == "q3":
@@ -874,7 +938,6 @@ def sf10_phases(args, seen, report) -> dict:
         f"{t} {ds.table('test', t).nrows}" for t in TPCDS_TABLES
     ) + f" rows in {time.perf_counter() - t0:.1f}s")
     ds_sess = Session(ds, db="test")
-    slice6 = [(name, q.sql, oracle_check(cat, q, {}), sess) for name, q in REPORT_QUERIES.items()]
     slice6.append(("q95", Q95_SQL, q95_check(ds), ds_sess))
 
     def base6(name):
@@ -907,6 +970,10 @@ def sf10_phases(args, seen, report) -> dict:
     # --- the index phase: access paths over indexes and the writes that
     # keep them, over the same SF10 tables ---
     launches["indexes"] = index_phase(cat, sess, report)
+
+    # --- the constraint phase: TPC-H's keys, FOREIGN KEYs and CHECKs,
+    # views and a generated column over the same SF10 tables ---
+    launches["constraints"] = constraint_phase(cat, sess, report)
 
     if args.profile:
         for name, sql, _check, qs in queries + slice6:
@@ -1168,17 +1235,20 @@ def spill_phase(args, report) -> dict:
     # default quota would
     qsess = Session(cat, db="tpch")
     qsess.executor.quota_bytes = SPILL_QUOTA
-    q1_oracle = q1_check(blk, li)
-    queries = [("q18_sf100", q18.sql.format(**params), oracle_check(cat, q18, params), sess),
+    pool = ThreadPoolExecutor(SPILL_ORACLE_THREADS)
+    q1_oracle = q1_check(blk, li, pool)
+    queries = [("q18_sf100", q18.sql.format(**params), oracle_check(cat, q18, params, pool), sess),
                ("q1_sf100", Q1_SQL, q1_oracle, sess),
-               ("q21_sf100", q21.sql, oracle_check(cat, q21, {}), sess),
-               ("r1_sf100", r1.sql, oracle_check(cat, r1, {}), sess),
+               ("q21_sf100", q21.sql, oracle_check(cat, q21, {}, pool), sess),
+               ("r1_sf100", r1.sql, oracle_check(cat, r1, {}, pool), sess),
                ("q1_quota_sf100", Q1_SQL, q1_oracle, qsess)]
+    oracles_first(pool, f"spill SF{SPILL_SF:g}", SPILL_ORACLE_THREADS)
     expect = {"q18_sf100": ("streamed", "device"), "q1_sf100": ("streamed", "device"),
               "q21_sf100": ("partitioned", "device"), "r1_sf100": ("sort", "device"),
               "q1_quota_sf100": ("streamed", "host")}
     h0 = TRANSFERS["h2d_bytes"]
-    launches = run_phase(queries, report, lambda n: li)
+    # every run, cold and warm, is checked and its path asserted
+    launches = run_phase(queries, report, lambda n: li, warm_runs=SPILL_WARM_RUNS)
     for name, _sql, _c, _s in queries:
         r = report[name]
         recs = r["stream"]
@@ -1205,8 +1275,9 @@ def spill_phase(args, report) -> dict:
             f"{r['resident_before'] / 1e9:.2f} GB before and {gb} GB after each run, "
             f"h2d {r['h2d_bytes_per_warm_run']:.4g} B and d2h fetches "
             f"{r['d2h_fetches_per_warm_run']:.4g} per warm run")
-        # no run leaves its staged batch, partials or partitions behind
-        assert r["resident_after"][3] <= r["resident_after"][1] + (256 << 20), gb
+        # no run leaves its staged batch, partials or partitions behind:
+        # the last run ends where the first did
+        assert r["resident_after"][-1] <= r["resident_after"][0] + (256 << 20), gb
     for rec in report["q21_sf100"]["stream"]:
         assert all(n <= 1 << 26 for n in rec["largest_partition_rows"].values()), rec
     r = report["q1_quota_sf100"]
@@ -1731,7 +1802,7 @@ SUMMARY_FILL = (
 )
 
 
-def rf1_data(cat, rng, sf: float, n: int, fresh: int):
+def rf1_data(cat, rng, sf: float, n: int, fresh: int, db: str = "tpch"):
     """RF1's new rows at scale `sf`, drawn with the port generator's
     distributions: `n` orders above the table's largest o_orderkey, one
     to seven line items each. The first `fresh` orders' o_comment values
@@ -1740,7 +1811,7 @@ def rf1_data(cat, rng, sf: float, n: int, fresh: int):
     integers)."""
     from tidb_tpu_torch.bench import tpch as G
 
-    top = max(int(b.columns["o_orderkey"].data.max()) for b in cat.table("tpch", "orders").blocks())
+    top = max(int(b.columns["o_orderkey"].data.max()) for b in cat.table(db, "orders").blocks())
     n_cust = max(int(150_000 * sf), 100)
     n_parts = max(int(200_000 * sf), 1000)
     n_supps = max(int(10_000 * sf), 100)
@@ -1813,7 +1884,7 @@ LINEITEM_KINDS = [("l_orderkey", "int"), ("l_partkey", "int"), ("l_suppkey", "in
                   ("l_receiptdate", "date"), ("l_shipmode", "str"), ("l_shipinstruct", "str")]
 
 
-def oracle_catalog(cat, arrays):
+def oracle_catalog(cat, arrays, db: str = "tpch"):
     """A catalog of one block per table built from numpy arrays with
     replace_blocks (never through the DML under test): `arrays` maps
     table -> column -> data; strings are codes into the SF10 table's
@@ -1824,7 +1895,7 @@ def oracle_catalog(cat, arrays):
     ocat = Catalog()
     ocat.create_database("tpch")
     for name, cols in arrays.items():
-        src = cat.table("tpch", name)
+        src = cat.table(db, name)
         types_ = src.schema.types
         hc = {c: HostColumn(types_[c], d, np.ones(len(d), dtype=bool), src.dictionaries.get(c))
               for c, d in cols.items()}
@@ -2171,6 +2242,7 @@ def refresh_phase(cat, sess, report) -> dict:
 
 #: the operator phase's time limit (seconds), oracles included
 OPERATOR_LIMIT_S = 150.0
+
 #: O3-O5's Q18 streams lineitem in about this many chunks (STREAM_ROWS)
 OPERATOR_CHUNKS = 8
 #: the password O2's user logs in with
@@ -2184,10 +2256,10 @@ OPERATOR_COLUMNS = {
 }
 
 
-def capture_arrays(cat, columns) -> dict:
+def capture_arrays(cat, columns, db: str = "tpch") -> dict:
     """{table: {column: array}} of the tables' current rows, every block
     in order (strings as codes of the table's dictionary)."""
-    return {name: {c: np.concatenate([b.columns[c].data for b in cat.table("tpch", name).blocks()])
+    return {name: {c: np.concatenate([b.columns[c].data for b in cat.table(db, name).blocks()])
                    for c in cols} for name, cols in columns.items()}
 
 
@@ -2837,10 +2909,13 @@ def index_phase(cat, sess, report) -> dict:
     def daily(w):
         lo, hi = int(date_to_days(w[0])), int(date_to_days(w[1]))
         m = (ship >= lo) & (ship < hi)
-        days, inv = np.unique(ship[m], return_inverse=True)
-        return dict(zip(days.tolist(), zip(np.bincount(inv, weights=None, minlength=len(days))
-                                           .tolist(),
-                                           np.bincount(inv, price[m], len(days)).tolist())))
+        # by day offset: a count over the window's days, not a sort of
+        # its ~28M rows
+        off = ship[m].astype(np.int64) - lo
+        n = np.bincount(off, minlength=hi - lo)
+        cents = np.bincount(off, price[m], hi - lo)
+        days = np.flatnonzero(n)
+        return dict(zip((days + lo).tolist(), zip(n[days].tolist(), cents[days].tolist())))
 
     def i4():
         sess.execute("create table daily_rev (d date primary key, rev decimal(18,2), n bigint)")
@@ -3010,6 +3085,616 @@ def indexes_only(report) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the constraint phase: TPC-H's declared keys, FOREIGN KEYs and CHECKs
+# ---------------------------------------------------------------------------
+
+#: the constraint phase's time limit (seconds), oracles included
+CONSTRAINT_LIMIT_S = 120.0
+#: the database the constraint phase declares its tables in
+CDB = "tpch_c"
+#: TPC-H clause 1.4.2's single-column FOREIGN KEYs: (table, column,
+#: parent, parent column, ON DELETE action)
+TPCH_FKS = [
+    ("lineitem", "l_orderkey", "orders", "o_orderkey", "cascade"),
+    ("lineitem", "l_partkey", "part", "p_partkey", None),
+    ("lineitem", "l_suppkey", "supplier", "s_suppkey", None),
+    ("orders", "o_custkey", "customer", "c_custkey", "set null"),
+    ("customer", "c_nationkey", "nation", "n_nationkey", None),
+    ("supplier", "s_nationkey", "nation", "n_nationkey", None),
+    ("partsupp", "ps_partkey", "part", "p_partkey", None),
+    ("partsupp", "ps_suppkey", "supplier", "s_suppkey", None),
+    ("nation", "n_regionkey", "region", "r_regionkey", None),
+]
+#: TPC-H clause 1.4.2.4's CHECKs, by table, as (name, expression)
+TPCH_CHECKS = {
+    "lineitem": [("l_qty_nonneg", "l_quantity >= 0"), ("l_price_nonneg", "l_extendedprice >= 0"),
+                 ("l_tax_nonneg", "l_tax >= 0"),
+                 ("l_discount_range", "l_discount between 0.00 and 1.00"),
+                 ("l_ship_before_receipt", "l_shipdate <= l_receiptdate")],
+    "orders": [("o_price_nonneg", "o_totalprice >= 0")],
+    "partsupp": [("ps_qty_nonneg", "ps_availqty >= 0"), ("ps_cost_nonneg", "ps_supplycost >= 0")],
+    "part": [("p_price_nonneg", "p_retailprice >= 0"), ("p_size_nonneg", "p_size >= 0")],
+}
+#: parents before children: the order CREATE TABLE needs
+CONSTRAINT_TABLES = ["region", "nation", "part", "supplier", "customer", "orders", "partsupp",
+                     "lineitem"]
+#: C4's customers deleted (their orders' o_custkey goes NULL)
+C4_CUSTOMERS = 100
+#: C3's INSERT IGNORE: rows, and how many of them violate (half a CHECK,
+#: half a FOREIGN KEY)
+C3_IGNORE_ROWS = 1000
+C3_IGNORE_BAD = 100
+
+
+def _sql_type(typ) -> str:
+    from tidb_tpu_torch.dtypes import Kind
+
+    return {Kind.INT: "bigint", Kind.DATE: "date", Kind.FLOAT: "double",
+            Kind.STRING: "varchar(199)"}.get(typ.kind, f"decimal(15,{typ.scale})")
+
+
+def constraint_ddl(cat, name: str) -> str:
+    """CREATE TABLE of `name` in the constraint phase's database: the
+    tpch table's columns and types and primary key, its FOREIGN KEYs and
+    CHECKs."""
+    t = cat.table("tpch", name)
+    parts = [f"{c} {_sql_type(ty)}" for c, ty in t.schema.columns]
+    if t.schema.primary_key:
+        parts.append("primary key (" + ", ".join(t.schema.primary_key) + ")")
+    for tbl, col, parent, pcol, act in TPCH_FKS:
+        if tbl == name:
+            parts.append(f"constraint {col}_fk foreign key ({col}) references {parent} ({pcol})"
+                         + (f" on delete {act}" if act else ""))
+    for cname, expr in TPCH_CHECKS.get(name, ()):
+        parts.append(f"constraint {cname} check ({expr})")
+    return f"create table {CDB}.{name} (" + ", ".join(parts) + ")"
+
+
+def member(values, keys):
+    """np.isin for non-negative integer keys, by a lookup table over
+    their range (np.isin sorts: seconds at 60M values)."""
+    table = np.zeros(int(max(values.max(initial=0), keys.max(initial=0))) + 2, dtype=bool)
+    table[keys] = True
+    return table[values]
+
+
+def spec_receiptdate(ship, receipt):
+    """l_receiptdate by TPC-H clause 4.2.3's rule (l_shipdate + 1..30
+    days), derived from the generator's own draw where that draw falls
+    before the ship date: bench/tpch.py draws the two independently."""
+    return np.where(receipt >= ship, receipt, ship + 1 + receipt % 30).astype(receipt.dtype)
+
+
+def constraint_phase(cat, sess, report) -> dict:
+    """The constraint phase over the SF10 tables. C1 declares TPC-H's
+    keys, FOREIGN KEYs and CHECKs on copies of the eight tables that
+    share their blocks (database tpch_c) and proves the data meets them;
+    C2 runs RF1 under them (INSERT ... SELECT of the generator's rows);
+    C3 has each kind of constraint refuse a write
+    and leave the tables as they were, INSERT IGNORE keep the rows that
+    pass, and a constrained UPDATE take the columnar path; C4 runs RF2 as
+    one DELETE of orders that cascades to lineitem, then a customer
+    DELETE that sets their orders' o_custkey NULL; C5 runs TPC-H Q15 as
+    the spec writes it, over a view, on the tpch tables; C6 adds a stored
+    generated column to supplier and writes through it. Every statement
+    is checked against numpy; each step prints its seconds, its
+    statements' seconds, host->device bytes and kernel launches. Returns
+    the phase's launches."""
+    import torch
+
+    from tidb_tpu_torch.bench import oracles as O
+    from tidb_tpu_torch.chunk import TRANSFERS, HostBlock, HostColumn
+    from tidb_tpu_torch.dtypes import date_to_days
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.storage import scan
+
+    out = report["constraints"] = {}
+    t_phase = time.perf_counter()
+    log(f"constraints: card {card_line()}")
+    K.reset_launches()
+
+    def step(name, fn):
+        """Run fn, recording under `name` its seconds, its statements'
+        seconds alone (``stmt_s``: the rest is its numpy oracles),
+        host->device bytes and kernel launches."""
+        stmt = {"s": 0.0, "depth": 0}
+
+        def timed(f):
+            def run(*a, **kw):
+                stmt["depth"] += 1
+                t2 = time.perf_counter()
+                try:
+                    return f(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    stmt["depth"] -= 1
+                    if not stmt["depth"]:
+                        stmt["s"] += time.perf_counter() - t2
+            return run
+
+        torch.cuda.synchronize()
+        h0, t1, l0 = TRANSFERS["h2d_bytes"], time.perf_counter(), dict(K.LAUNCHES)
+        sess.execute = timed(sess.execute)
+        try:
+            extra = fn() or {}
+        finally:
+            del sess.execute
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t1, "stmt_s": stmt["s"],
+                     "h2d_bytes": TRANSFERS["h2d_bytes"] - h0,
+                     "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES}, **extra}
+        log(f"constraints {name}: " + json.dumps(out[name]))
+
+    def refused(sql, want):
+        try:
+            sess.execute(sql)
+        except ValueError as e:
+            assert str(e) == want, (sql[:80], str(e), want)
+            return
+        raise AssertionError(f"not refused: {sql[:80]}")
+
+    def one(sql):
+        (row,) = sess.execute(sql).rows
+        return row
+
+    # --- C1: declared constraints at SF10, on the tpch tables' blocks ---
+    def c1():
+        sess.execute(f"create database {CDB}")
+        for name in CONSTRAINT_TABLES:
+            sess.execute(constraint_ddl(cat, name))
+        for name in CONSTRAINT_TABLES:
+            src, dst = cat.table("tpch", name), cat.table(CDB, name)
+            blocks = []
+            for b in src.blocks():
+                cols = dict(b.columns)  # a block of its own over the same arrays
+                if name == "lineitem":
+                    c = cols["l_receiptdate"]
+                    cols["l_receiptdate"] = HostColumn(c.type, spec_receiptdate(
+                        cols["l_shipdate"].data, c.data), c.valid, c.dictionary)
+                blocks.append(HostBlock(cols, b.nrows, part_id=b.part_id))
+            dst.dictionaries.update(src.dictionaries)
+            dst.replace_blocks(blocks)
+        arr = capture_arrays(cat, {"lineitem": ["l_quantity", "l_extendedprice", "l_tax",
+                                                "l_discount", "l_shipdate", "l_receiptdate"],
+                                   "orders": ["o_totalprice"],
+                                   "partsupp": ["ps_availqty", "ps_supplycost"],
+                                   "part": ["p_retailprice", "p_size"]}, db=CDB)
+        want = {"l_qty_nonneg": arr["lineitem"]["l_quantity"] < 0,
+                "l_price_nonneg": arr["lineitem"]["l_extendedprice"] < 0,
+                "l_tax_nonneg": arr["lineitem"]["l_tax"] < 0,
+                "l_discount_range": (arr["lineitem"]["l_discount"] < 0)
+                | (arr["lineitem"]["l_discount"] > 100),
+                "l_ship_before_receipt": arr["lineitem"]["l_shipdate"]
+                > arr["lineitem"]["l_receiptdate"],
+                "o_price_nonneg": arr["orders"]["o_totalprice"] < 0,
+                "ps_qty_nonneg": arr["partsupp"]["ps_availqty"] < 0,
+                "ps_cost_nonneg": arr["partsupp"]["ps_supplycost"] < 0,
+                "p_price_nonneg": arr["part"]["p_retailprice"] < 0,
+                "p_size_nonneg": arr["part"]["p_size"] < 0}
+        bad = {}
+        for name, checks in TPCH_CHECKS.items():
+            for cname, expr in checks:
+                (n,) = one(f"select count(*) from {CDB}.{name} where not ({expr})")
+                assert n == int(want[cname].sum()) == 0, (cname, n, int(want[cname].sum()))
+                bad[cname] = n
+        orphans, keys = {}, {}
+        for tbl, col, parent, pcol, _act in TPCH_FKS:
+            keys.setdefault(tbl, set()).add(col)
+            keys.setdefault(parent, set()).add(pcol)
+        a = capture_arrays(cat, {n: sorted(c) for n, c in keys.items()}, db=CDB)
+        for tbl, col, parent, pcol, _act in TPCH_FKS:
+            (n,) = one(f"select count(*) from {CDB}.{tbl} c left join {CDB}.{parent} p "
+                       f"on c.{col} = p.{pcol} where c.{col} is not null and p.{pcol} is null")
+            expect = int((~member(a[tbl][col], a[parent][pcol])).sum())
+            assert n == expect == 0, (tbl, col, n, expect)
+            orphans[f"{tbl}.{col}"] = n
+        ddl = sess.execute(f"show create table {CDB}.lineitem").rows[0][1]
+        log("constraints: SHOW CREATE TABLE tpch_c.lineitem\n" + ddl)
+        assert "constraint l_orderkey_fk foreign key (l_orderkey) references tpch_c.orders " \
+               "(o_orderkey) on delete cascade" in ddl, ddl
+        assert "constraint l_ship_before_receipt check (l_shipdate <= l_receiptdate)" in ddl, ddl
+        refs = sess.execute("select constraint_name, update_rule, delete_rule, table_name, "
+                            "referenced_table_name from information_schema.referential_constraints "
+                            f"where constraint_schema = '{CDB}'").rows
+        log(f"constraints: referential_constraints {refs}")
+        assert sorted(refs) == sorted(
+            (f"{col}_fk", "NO ACTION", {"cascade": "CASCADE", "set null": "SET NULL"}.get(
+                act, "NO ACTION"), tbl, parent) for tbl, col, parent, _p, act in TPCH_FKS), refs
+        return {"violating_rows": bad, "orphans": orphans}
+
+    step("c1_declare", c1)
+
+    # --- C2: RF1 under the constraints ---
+    ora_li_cols = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                   "l_returnflag", "l_linestatus", "l_shipdate"]
+
+    def staged(name, cols, like):
+        """A table of RF1's rows in the constraint phase's database, made
+        through the storage layer (no statement, no constraint): the rows
+        INSERT ... SELECT then writes under the constraints."""
+        from tidb_tpu_torch.chunk import column_from_values
+        from tidb_tpu_torch.storage import TableSchema
+
+        src = cat.table(CDB, like)
+        t = cat.create_table(CDB, name, TableSchema(list(src.schema.columns)))
+        n = len(next(iter(cols.values())))
+        vals = {}
+        for c, typ in src.schema.columns:
+            v = cols.get(c)
+            if v is None:
+                vals[c] = [None] * n
+            elif typ.kind.name == "DECIMAL":
+                vals[c] = (v / 10 ** typ.scale).tolist()
+            else:
+                vals[c] = v.tolist()
+        t.append_block(HostBlock.from_columns(
+            {c: column_from_values(vals[c], typ) for c, typ in src.schema.columns}))
+        return t
+
+    def c2():
+        rng = np.random.default_rng(17)
+        rf1 = rf1_data(cat, rng, SF, RF_ORDERS, 0, db=CDB)
+        li = rf1["lineitem"]
+        li["l_receiptdate"] = li["l_shipdate"] + rng.integers(1, 31, len(li["l_shipdate"]))
+        n_o, n_l = RF_ORDERS, len(li["l_orderkey"])
+        for name, like, cols in (("rf1_orders", "orders", rf1["orders"]),
+                                 ("rf1_lineitem", "lineitem", li)):
+            staged(name, cols, like)
+            cat.create_table(CDB, f"plain_{like}", cat.table(CDB, name).schema)
+        # the same rows into tables without constraints: what the
+        # constraints add to the statements
+        t0 = time.perf_counter()
+        for like in ("orders", "lineitem"):
+            sess.execute(f"insert into {CDB}.plain_{like} select * from {CDB}.rf1_{like}")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        before = cat.table(CDB, "lineitem").nrows
+        t0 = time.perf_counter()
+        sess.execute("begin")
+        res = sess.execute(f"insert into {CDB}.orders select * from {CDB}.rf1_orders")
+        assert res.affected == n_o, res.affected
+        res = sess.execute(f"insert into {CDB}.lineitem select * from {CDB}.rf1_lineitem")
+        assert res.affected == n_l, res.affected
+        sess.execute("commit")
+        torch.cuda.synchronize()
+        rf1_s = time.perf_counter() - t0
+        for name in ("rf1_orders", "rf1_lineitem", "plain_orders", "plain_lineitem"):
+            scan.release(cat.table(CDB, name))
+            sess.execute(f"drop table {CDB}.{name}")
+        assert cat.table(CDB, "lineitem").nrows == before + n_l
+        ora = capture_arrays(cat, {"lineitem": ora_li_cols}, db=CDB)
+        t_li = cat.table(CDB, "lineitem")
+        check_q1(sess.execute(O.Q1_SQL.replace("from lineitem", f"from {CDB}.lineitem")),
+                 O.numpy_q1(ora["lineitem"]), t_li)
+        values_s = report.get("refresh", {}).get("steps", {}).get("rf1", {}).get("s")
+        log(f"constraints: RF1 by INSERT ... SELECT under the constraints {rf1_s:.2f}s, without "
+            f"them {plain_s:.2f}s ({n_o} orders, {n_l} lineitems); the refresh phase's RF1 "
+            f"(INSERT ... VALUES, no constraints) {values_s}")
+        rf1_keys.extend(rf1["orders"]["o_orderkey"].tolist())
+        return {"rf1_s": rf1_s, "plain_s": plain_s, "orders": n_o, "lineitems": n_l,
+                "refresh_rf1_s": values_s}
+
+    rf1_keys: list = []
+    step("c2_rf1", c2)
+    rf1_keys = np.array(rf1_keys, dtype=np.int64)
+
+    # --- C3: refused writes leave the tables unchanged ---
+    sums = {"orders": "count(*), sum(o_totalprice), sum(o_custkey)",
+            "lineitem": "count(*), sum(l_discount), sum(l_extendedprice), sum(l_partkey)",
+            "nation": "count(*), sum(n_nationkey)", "customer": "count(*), sum(c_nationkey)"}
+
+    def state():
+        return {n: one(f"select {e} from {CDB}.{n}") for n, e in sums.items()}
+
+    def c3():
+        before = state()
+        ok = int(rf1_keys[0])
+        cust_max = int(one(f"select max(c_custkey) from {CDB}.customer")[0])
+        absent = cust_max + 1000
+        refused(f"insert into {CDB}.orders (o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+                f"o_orderdate) values ({int(rf1_keys[-1]) + 10}, {absent}, 'O', 100.00, "
+                f"'1996-01-02')",
+                f"FOREIGN KEY 'o_custkey_fk' violated: [{absent}] not in {CDB}.customer.c_custkey")
+        refused(f"insert into {CDB}.lineitem (l_orderkey, l_partkey, l_suppkey, l_linenumber, "
+                f"l_quantity, l_extendedprice, l_discount, l_tax, l_shipdate, l_receiptdate) "
+                f"values ({ok}, 1, 1, 9, 1.00, 100.00, 0.05, 0.01, '1996-02-10', '1996-02-01')",
+                "CHECK constraint 'l_ship_before_receipt' violated")
+        refused(f"delete from {CDB}.nation where n_nationkey = 3",
+                f"FOREIGN KEY 'c_nationkey_fk' on {CDB}.customer restricts this statement: "
+                "[3] still referenced")
+        paths = []
+        columnar = sess._try_columnar_update
+
+        def spy(*a):
+            # "refused": the columnar path itself raised (its CHECK)
+            try:
+                r = columnar(*a)
+            except ValueError:
+                paths.append("refused")
+                raise
+            paths.append("columnar" if r is not None else "rewrite")
+            return r
+
+        sess._try_columnar_update = spy
+        try:
+            refused(f"update {CDB}.lineitem set l_discount = 1.5 where l_orderkey = {ok}",
+                    "CHECK constraint 'l_discount_range' violated")
+            assert paths == ["refused"], paths
+            refused(f"drop table {CDB}.orders",
+                    f"cannot drop {CDB}.orders: referenced by FOREIGN KEY 'l_orderkey_fk' on "
+                    f"{CDB}.lineitem")
+            after = state()
+            assert after == before, (before, after)
+            # INSERT IGNORE: C3_IGNORE_BAD of C3_IGNORE_ROWS rows violate
+            rng = np.random.default_rng(23)
+            n, bad = C3_IGNORE_ROWS, C3_IGNORE_BAD
+            part_max = int(one(f"select max(p_partkey) from {CDB}.part")[0])
+            keys = rng.choice(rf1_keys, n)
+            ship = rng.integers(date_to_days("1995-01-01"), date_to_days("1996-01-01"), n)
+            rows = {"l_orderkey": keys, "l_partkey": rng.integers(1, part_max + 1, n),
+                    "l_suppkey": np.ones(n, dtype=np.int64),
+                    "l_linenumber": 10 + np.arange(n), "l_quantity": rng.integers(1, 51, n) * 100,
+                    "l_extendedprice": rng.integers(90_000, 10_500_000, n),
+                    "l_discount": rng.integers(0, 11, n), "l_tax": rng.integers(0, 9, n),
+                    "l_returnflag": np.array(["N"] * n, dtype=object),
+                    "l_linestatus": np.array(["O"] * n, dtype=object),
+                    "l_shipdate": ship, "l_commitdate": ship,
+                    "l_receiptdate": ship + rng.integers(1, 31, n),
+                    "l_shipmode": np.array(["MAIL"] * n, dtype=object),
+                    "l_shipinstruct": np.array(["NONE"] * n, dtype=object)}
+            which = rng.choice(n, bad, replace=False)
+            rows["l_receiptdate"][which[: bad // 2]] = ship[which[: bad // 2]] - 1
+            rows["l_partkey"][which[bad // 2:]] = part_max + 1 + np.arange(bad - bad // 2)
+            keep = np.ones(n, dtype=bool)
+            keep[which] = False
+            res = sess.execute(insert_sql(f"{CDB}.lineitem", LINEITEM_KINDS, rows, 0, n)
+                               .replace("insert into", "insert ignore into", 1))
+            assert res.affected == n - bad, res.affected
+            got = one(f"select count(*), sum(l_extendedprice), sum(l_linenumber) from "
+                      f"{CDB}.lineitem where l_linenumber >= 10")
+            want = (int(keep.sum()), int(rows["l_extendedprice"][keep].sum()) / 100,
+                    int(rows["l_linenumber"][keep].sum()))
+            assert tuple(got) == want, (got, want)
+            # a constrained UPDATE on the columnar path, against numpy
+            li = capture_arrays(cat, {"lineitem": ["l_shipdate", "l_discount"]}, db=CDB)["lineitem"]
+            hit = (li["l_shipdate"] >= date_to_days("1998-08-01")) & (li["l_discount"] <= 9)
+            n_paths = len(paths)
+            res = sess.execute(f"update {CDB}.lineitem set l_discount = l_discount + 0.01 "
+                               "where l_shipdate >= '1998-08-01' and l_discount <= 0.09")
+            assert paths[n_paths:] == ["columnar"], paths
+            assert res.affected == int(hit.sum()), (res.affected, int(hit.sum()))
+            got = capture_arrays(cat, {"lineitem": ["l_discount"]}, db=CDB)["lineitem"]["l_discount"]
+            assert np.array_equal(got, li["l_discount"] + hit), "l_discount after the UPDATE"
+        finally:
+            del sess._try_columnar_update
+        return {"ignore_kept": int(keep.sum()), "updated": int(hit.sum())}
+
+    step("c3_refusals", c3)
+
+    # --- C4: RF2 by cascade, and SET NULL ---
+    def c4():
+        a = capture_arrays(cat, {"orders": ["o_orderkey"], "lineitem": ["l_orderkey"]}, db=CDB)
+        rf2 = np.sort(a["orders"]["o_orderkey"])[:RF_ORDERS]
+        cascaded = int(member(a["lineitem"]["l_orderkey"], rf2).sum())
+        n_li = len(a["lineitem"]["l_orderkey"])
+        t0 = time.perf_counter()
+        res = sess.execute(f"delete from {CDB}.orders where o_orderkey in ("
+                           + ", ".join(str(int(k)) for k in rf2) + ")")
+        torch.cuda.synchronize()
+        cascade_s = time.perf_counter() - t0
+        assert res.affected == len(rf2), res.affected
+        rf2_last.append(int(rf2[-1]))
+        assert cat.table(CDB, "lineitem").nrows == n_li - cascaded
+        qcols = {"lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                              "l_returnflag", "l_linestatus", "l_shipdate"],
+                 "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+                            "o_totalprice"],
+                 "customer": ["c_custkey", "c_mktsegment"]}
+        ora = capture_arrays(cat, qcols, db=CDB)
+        assert not member(ora["lineitem"]["l_orderkey"], rf2).any()
+        ocat = oracle_catalog(cat, ora, db=CDB)
+        t_li = cat.table(CDB, "lineitem")
+        q18 = O.TPCH_QUERIES["q18"]
+        q18_params = O.spec_params("q18", SF)
+        in_c = (lambda sql: sql.replace("from lineitem", f"from {CDB}.lineitem")
+                .replace("customer, orders, lineitem", f"{CDB}.customer, {CDB}.orders, "
+                         f"{CDB}.lineitem"))
+        check_q1(sess.execute(in_c(O.Q1_SQL)), O.numpy_q1(ora["lineitem"]), t_li)
+        check_q3(sess.execute(in_c(O.Q3_SQL)), ocat)
+        sess.execute(f"use {CDB}")
+        try:
+            oracle_check(ocat, q18, q18_params)(sess.execute(q18.sql.format(**q18_params)))
+            # SET NULL: the orders of C4_CUSTOMERS deleted customers
+            cust = np.sort(ora["customer"]["c_custkey"])
+            gone = cust[np.linspace(0, len(cust) - 1, C4_CUSTOMERS).astype(np.int64)]
+            hit = member(ora["orders"]["o_custkey"], gone)
+            t1 = time.perf_counter()
+            res = sess.execute("delete from customer where c_custkey in ("
+                               + ", ".join(str(int(k)) for k in gone) + ")")
+            torch.cuda.synchronize()
+            set_null_s = time.perf_counter() - t1
+            assert res.affected == C4_CUSTOMERS, res.affected
+            (nulls,) = one("select count(*) from orders where o_custkey is null")
+            assert nulls == int(hit.sum()), (nulls, int(hit.sum()))
+            q13 = O.TPCH_QUERIES["q13"]
+            q13_cols = {"orders": ["o_custkey", "o_comment"], "customer": ["c_custkey"]}
+            ocat13 = oracle_catalog(cat, capture_arrays(cat, q13_cols, db=CDB), db=CDB)
+            oracle_check(ocat13, q13, {})(sess.execute(q13.sql))
+        finally:
+            sess.execute("use tpch")
+        refresh_rf2 = report.get("refresh", {}).get("steps", {}).get("rf2", {}).get("s")
+        log(f"constraints: RF2 as one cascading DELETE {cascade_s:.2f}s ({len(rf2)} orders, "
+            f"{cascaded} lineitems); the refresh phase's RF2 {refresh_rf2}")
+        return {"cascade_s": cascade_s, "orders_deleted": len(rf2), "lineitems_cascaded": cascaded,
+                "refresh_rf2_s": refresh_rf2, "set_null_s": set_null_s,
+                "orders_nulled": int(hit.sum())}
+
+    rf2_last: list = []
+    step("c4_cascade", c4)
+
+    # --- C5: Q15 over a view, on the tpch tables ---
+    def c5():
+        d0, d1 = "1996-01-01", "1996-04-01"
+        create = ("create view revenue0 (supplier_no, total_revenue) as select l_suppkey, "
+                  "sum(l_extendedprice * (1 - l_discount)) from lineitem where l_shipdate >= "
+                  f"date '{d0}' and l_shipdate < date '{d1}' "
+                  "group by l_suppkey")
+        q15 = ("select s_suppkey, s_name, s_address, s_phone, total_revenue from supplier, "
+               "revenue0 where s_suppkey = supplier_no and total_revenue = "
+               "(select max(total_revenue) from revenue0) order by s_suppkey")
+        cols = {"lineitem": ["l_suppkey", "l_shipdate", "l_extendedprice", "l_discount"],
+                "supplier": ["s_suppkey", "s_name", "s_address", "s_phone"]}
+        arr = capture_arrays(cat, cols)
+        ocat = oracle_catalog(cat, arr)
+        want = O.numpy_q15(ocat, d0, d1)
+        sup = arr["supplier"]
+        s_row = {int(k): i for i, k in enumerate(sup["s_suppkey"].tolist())}
+        t_s = cat.table("tpch", "supplier")
+
+        def check(res):
+            O.check_rows([(r[0], r[1], r[4]) for r in res.rows], want, (0,), None)
+            for r in res.rows:
+                i = s_row[int(r[0])]
+                assert r[2] == t_s.dictionaries["s_address"][sup["s_address"][i]], r
+                assert r[3] == t_s.dictionaries["s_phone"][sup["s_phone"][i]], r
+
+        sess.execute(create)
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            res = sess.execute(q15)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(res)
+        cte = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            res = sess.execute(O.Q15_SQL)
+            torch.cuda.synchronize()
+            cte.append(time.perf_counter() - t0)
+            O.check_rows(res.rows, want, (0,), None)
+        sess.execute("create view top_supplier as select supplier_no from revenue0 where "
+                     "total_revenue = (select max(total_revenue) from revenue0)")
+        O.check_rows(sess.execute("select supplier_no from top_supplier").rows,
+                     [(w[0],) for w in want], None, None)
+        shown = sess.execute("show create view revenue0").rows
+        assert shown[0][0] == "revenue0" and shown[0][1].startswith(
+            "CREATE VIEW `revenue0` (supplier_no, total_revenue) AS select l_suppkey"), shown
+        vrow = sess.execute("select table_schema, table_name, definer from "
+                            "information_schema.views where table_name = 'revenue0'").rows
+        assert vrow == [("tpch", "revenue0", "root")], vrow
+        sess.execute("drop view top_supplier")
+        sess.execute("drop view revenue0")
+        # a view over tpch_c.lineitem sees C4's cascade: RF2 took the
+        # oldest orders, so no line item is left at or below its last key
+        sess.execute(f"create view {CDB}.li_old as select count(*) n, min(l_orderkey) k "
+                     f"from {CDB}.lineitem where l_orderkey <= {rf2_last[0]}")
+        lk = capture_arrays(cat, {"lineitem": ["l_orderkey"]}, db=CDB)["lineitem"]["l_orderkey"]
+        assert int((lk <= rf2_last[0]).sum()) == 0
+        assert tuple(one(f"select n, k from {CDB}.li_old")) == (0, None)
+        sess.execute(f"drop view {CDB}.li_old")
+        log(f"constraints: Q15 over a view cold {times[0]:.3f}s, warm ms "
+            f"{[round(x * 1e3, 2) for x in times[1:]]}; as a CTE warm ms "
+            f"{[round(x * 1e3, 2) for x in cte[1:]]}")
+        return {"view_cold_s": times[0], "view_warm_ms": [x * 1e3 for x in times[1:]],
+                "cte_cold_s": cte[0], "cte_warm_ms": [x * 1e3 for x in cte[1:]],
+                "rows": len(want)}
+
+    step("c5_views", c5)
+
+    # --- C6: a stored generated column on supplier ---
+    def c6():
+        t0 = time.perf_counter()
+        sess.execute(f"alter table {CDB}.supplier add column s_acct_band int "
+                     "as (floor(s_acctbal / 1000)) stored")
+        backfill_s = time.perf_counter() - t0
+        scale = cat.table(CDB, "supplier").schema.types["s_acctbal"].scale
+
+        def band_check():
+            a = capture_arrays(cat, {"supplier": ["s_acctbal", "s_acct_band", "s_nationkey"]},
+                               db=CDB)["supplier"]
+            band = np.floor(a["s_acctbal"] / 10**scale / 1000).astype(np.int64)
+            assert np.array_equal(a["s_acct_band"], band), "s_acct_band"
+            keys, inv = np.unique(band, return_inverse=True)
+            cnt = np.bincount(inv)
+            tot = np.bincount(inv, weights=a["s_acctbal"].astype(np.float64))
+            want = [(int(k), int(c), int(round(s)) / 10**scale) for k, c, s in zip(keys, cnt, tot)]
+            O.check_rows(sess.execute(f"select s_acct_band, count(*), sum(s_acctbal) from "
+                                      f"{CDB}.supplier group by s_acct_band").rows, want, None, None)
+            return a
+
+        band_check()
+        top = int(one(f"select max(s_suppkey) from {CDB}.supplier")[0])
+        res = sess.execute(f"insert into {CDB}.supplier (s_suppkey, s_name, s_address, "
+                           f"s_nationkey, s_phone, s_acctbal, s_comment) values "
+                           f"({top + 1}, 'Supplier#c6a', 'addr', 3, '13-000', 4321.50, 'c6'), "
+                           f"({top + 2}, 'Supplier#c6b', 'addr', 4, '14-000', -871.25, 'c6')")
+        assert res.affected == 2
+        assert sess.execute(f"select s_acct_band from {CDB}.supplier where s_suppkey > {top} "
+                            "order by s_suppkey").rows == [(4,), (-1,)]
+        paths = []
+        columnar = sess._try_columnar_update
+
+        def spy(*a):
+            r = columnar(*a)
+            paths.append(r is not None)
+            return r
+
+        sess._try_columnar_update = spy
+        try:
+            before = band_check()
+            nat = before["s_nationkey"] == 7
+            res = sess.execute(f"update {CDB}.supplier set s_acctbal = s_acctbal + 2500 "
+                               "where s_nationkey = 7")
+            assert paths == [True], paths
+            assert res.affected == int(nat.sum()), (res.affected, int(nat.sum()))
+            after = band_check()
+            assert np.array_equal(after["s_acctbal"],
+                                  before["s_acctbal"] + np.where(nat, 2500 * 10**scale, 0))
+        finally:
+            del sess._try_columnar_update
+        refused(f"insert into {CDB}.supplier (s_suppkey, s_name, s_address, s_nationkey, "
+                f"s_phone, s_acctbal, s_comment, s_acct_band) values ({top + 3}, 'Supplier#c6c', "
+                "'addr', 3, '13-000', 10.00, 'c6', 7)",
+                "the value specified for generated column 's_acct_band' is not allowed")
+        return {"backfill_s": backfill_s, "suppliers": cat.table(CDB, "supplier").nrows,
+                "updated": int(nat.sum())}
+
+    step("c6_generated", c6)
+
+    # the phase's tables go, with their cached device columns
+    for name in CONSTRAINT_TABLES:
+        scan.release(cat.table(CDB, name))
+    sess.execute(f"drop database {CDB}")
+    launches = dict(K.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"constraints: phase {out['seconds']:.1f}s of {CONSTRAINT_LIMIT_S:g}, launches {launches}")
+    assert out["seconds"] <= CONSTRAINT_LIMIT_S, out["seconds"]
+    return launches
+
+
+def constraints_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the constraint phase alone: the
+    short loop for constraint work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = constraint_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the constraint phase"
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -3036,6 +3721,9 @@ def main() -> int:
     ap.add_argument("--indexes-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the index phase only: no last line")
+    ap.add_argument("--constraints-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the constraint phase only: no last line")
     args = ap.parse_args()
 
     import torch
@@ -3093,6 +3781,10 @@ def main() -> int:
         return 0
     if args.indexes_only:
         log(json.dumps({"indexes": indexes_only(report)}))
+        log(card)
+        return 0
+    if args.constraints_only:
+        log(json.dumps({"constraints": constraints_only(report)}))
         log(card)
         return 0
     if not args.spill_only:

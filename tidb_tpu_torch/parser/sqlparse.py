@@ -123,7 +123,8 @@ def tokenize(sql: str) -> List[Token]:
         elif kind == "str":
             q = text[0]
             body = text[1:-1].replace(q + q, q)
-            body = re.sub(r"\\(.)", lambda mm: {"n": "\n", "t": "\t", "0": "\0"}.get(mm.group(1), mm.group(1)), body)
+            if "\\" in body:  # most literals have no escape: skip the regex
+                body = re.sub(r"\\(.)", lambda mm: {"n": "\n", "t": "\t", "0": "\0"}.get(mm.group(1), mm.group(1)), body)
             out.append(Token("str", body, m.start()))
         else:
             out.append(Token(kind, text, m.start()))

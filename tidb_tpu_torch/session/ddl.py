@@ -1,4 +1,5 @@
-"""DDL over existing tables: indexes, RENAME TABLE and ALTER TABLE.
+"""DDL over existing tables: indexes, RENAME TABLE and ALTER TABLE, and
+the generated-column machinery.
 
 Counterpart of tidb_tpu/session/ddl.py and of the CREATE/DROP INDEX,
 RENAME TABLE, ALTER TABLE and multi-spec ALTER branches of the JAX
@@ -9,10 +10,13 @@ CREATE INDEX climbs the online schema-state ladder WRITE_ONLY ->
 WRITE_REORG -> PUBLIC (writers check an index from its first state,
 readers use it once public) and rolls the registration back when a
 UNIQUE index finds duplicates. The JAX ladder's failpoints are left out:
-failpoints are not ported. The port has no CHECK constraints, generated
-columns or FOREIGN KEYs, so no column DDL has a dependent to guard
-(the JAX package's ``_guard_column_refs``); ALTER TABLE's partition
-forms and a generated column added by ALTER raise
+failpoints are not ported. Column DDL is refused where a CHECK, a
+generated column or a FOREIGN KEY depends on the column
+(``_guard_column_refs``). Generated columns
+(STORED and VIRTUAL alike) are computed row by row on the host when
+rows are written (``_fill_generated``) and over the whole table after
+ALTER TABLE ... ADD ... AS or a MODIFY of an input
+(``_recompute_generated``). ALTER TABLE's partition forms raise
 ``NotImplementedError`` naming themselves.
 """
 
@@ -23,6 +27,9 @@ import numpy as np
 from tidb_tpu_torch.dtypes import Kind
 from tidb_tpu_torch.parser import ast
 from tidb_tpu_torch.storage import convert as CV
+from tidb_tpu_torch.utils.checkeval import (
+    CheckEvalError, check_columns, eval_check, validate_expr_ops,
+)
 
 #: ALTER TABLE actions of features not ported yet, by the name their
 #: refusal gives them
@@ -40,8 +47,6 @@ def unported_alter(s):
         return None
     if s.action in UNPORTED_ALTER:
         return f"{UNPORTED_ALTER[s.action]} is not ported yet"
-    if s.action == "add" and s.column is not None and s.column.generated is not None:
-        return "generated columns (ALTER TABLE ... ADD ... AS) is not ported yet"
     return None
 
 
@@ -66,6 +71,154 @@ def coerce_default(v, typ):
 
 
 class DDLMixin:
+    # -- column DDL guards ----------------------------------------------------
+    def _guard_column_refs(self, t, db, tname, cn: str, verb: str) -> None:
+        """Refuse column DDL (`verb`: drop, rename, modify) that would
+        break a CHECK, a generated column (not a MODIFY: that recomputes
+        its dependents) or a FOREIGN KEY on either side."""
+        for nm, ex in self._check_exprs_for(t):
+            if cn in check_columns(ex):
+                raise ValueError(f"cannot {verb} column {cn!r}: used by CHECK {nm!r}")
+        if verb != "modify":
+            for gc, ex in self._gen_exprs_for(t):
+                if cn in check_columns(ex):
+                    raise ValueError(f"cannot {verb} column {cn!r}: used by generated column {gc!r}")
+        for nm, col, _rdb, _rtbl, _rcol in t.fks:
+            if cn == col:
+                raise ValueError(f"cannot {verb} column {cn!r}: used by FOREIGN KEY {nm!r}")
+        for cdb, ctn, nm, _c, rcol, _act in self._fk_children(db, tname):
+            if cn == rcol:
+                raise ValueError(
+                    f"cannot {verb} column {cn!r}: referenced by FOREIGN KEY {nm!r} on {cdb}.{ctn}")
+
+    # -- generated columns ----------------------------------------------------
+    def _validate_generated(self, s, auto, colnames):
+        """A CREATE TABLE's generated-column clauses checked; returns the
+        [(column, expression text, stored)] metadata in definition order
+        (an evaluation order: a generated column may read only earlier
+        ones)."""
+        if not any(c.generated is not None for c in s.columns):
+            return []
+        ai_name = auto[0].name.lower() if auto else None
+        gen_names = {c.name.lower() for c in s.columns if c.generated is not None}
+        base_cols = colnames - gen_names
+        pk_cols = {p.lower() for p in s.primary_key}
+        earlier: set = set()
+        meta = []
+        for c in s.columns:
+            n = c.name.lower()
+            if c.generated is None:
+                continue
+            txt, expr, stored = c.generated
+            try:
+                validate_expr_ops(expr)
+            except CheckEvalError as ex:
+                raise ValueError(f"generated column {n!r}: {ex}") from None
+            deps = check_columns(expr)
+            bad = deps - base_cols - earlier
+            if bad:
+                raise ValueError(
+                    f"generated column {n!r} references unknown or "
+                    f"later generated columns {sorted(bad)}")
+            if ai_name is not None and ai_name in deps:
+                raise ValueError(f"generated column {n!r} cannot depend on the AUTO_INCREMENT column")
+            if c.default is not None:
+                raise ValueError(f"generated column {n!r} cannot have a DEFAULT value")
+            if c.auto_increment:
+                raise ValueError(f"generated column {n!r} cannot be AUTO_INCREMENT")
+            if not stored and n in pk_cols:
+                raise ValueError(
+                    "virtual generated column cannot be a PRIMARY KEY (make it STORED)")
+            earlier.add(n)
+            meta.append((n, txt, bool(stored)))
+        return meta
+
+    def _gen_exprs_for(self, t):
+        """[(column, parsed expression)] of a table's generated columns,
+        parsed once."""
+        from tidb_tpu_torch.parser.sqlparse import parse_expr
+
+        cache = getattr(t, "_gen_exprs", None)
+        if cache is None or len(cache) != len(t.generated):
+            cache = t._gen_exprs = [(col, parse_expr(txt)) for col, txt, _st in t.generated]
+        return cache
+
+    def _fill_generated(self, t, rows) -> None:
+        """Compute the generated columns of Python rows in place, in
+        definition order, so a later one reads the earlier ones. A row is
+        a full list in schema order or a dict column -> value."""
+        gen = self._gen_exprs_for(t)
+        if not gen or not rows:
+            return
+        names = t.schema.names
+        types = t.schema.types
+        idx = {n: i for i, n in enumerate(names)}
+        for r in rows:
+            vals = r if isinstance(r, dict) else dict(zip(names, r))
+            for col, ex in gen:
+                v = coerce_default(eval_check(ex, vals), types[col])
+                vals[col] = v
+                if vals is not r:
+                    r[idx[col]] = v
+
+    def _reject_generated_targets(self, t, cols, verb: str) -> None:
+        hit = {c for c, _txt, _st in t.generated} & set(cols)
+        if hit:
+            raise ValueError(f"cannot {verb} generated column(s) {sorted(hit)}")
+
+    def _recompute_generated(self, t) -> None:
+        """Every generated column over the whole table again, from its
+        decoded rows (the JAX package's row-at-a-time rewrite): after
+        ALTER TABLE ... ADD ... AS and after a MODIFY of an input."""
+        gen = self._gen_exprs_for(t)
+        if not gen or not t.blocks():
+            return
+        names = t.schema.names
+        rows = []
+        for b in t.blocks():
+            decs = [b.columns[n].decode() for n in names]
+            vals = [b.columns[n].valid for n in names]
+            for k in range(b.nrows):
+                rows.append([decs[c][k] if vals[c][k] else None for c in range(len(names))])
+        self._fill_generated(t, rows)
+        saved_blocks, saved_dicts = list(t.blocks()), dict(t.dictionaries)
+        t.replace_blocks([], modified_rows=len(rows))
+        try:
+            if rows:
+                t.append_rows(rows)
+        except Exception:
+            t.replace_blocks(saved_blocks, modified_rows=len(rows))
+            t.dictionaries = saved_dicts
+            raise
+        finally:
+            self._drop_cached(invalidate=[t])
+
+    def _alter_add_generated(self, t, s) -> None:
+        """ALTER TABLE ADD COLUMN ... [GENERATED ALWAYS] AS (expr): the
+        expression checked against the existing columns, the rule
+        installed and the stored rows backfilled."""
+        cd = s.column
+        n = cd.name.lower()
+        txt, expr, stored = cd.generated
+        if s.default is not None or cd.default is not None:
+            raise ValueError(f"generated column {n!r} cannot have a DEFAULT value")
+        try:
+            validate_expr_ops(expr)
+        except CheckEvalError as ex:
+            raise ValueError(f"generated column {n!r}: {ex}") from None
+        deps = check_columns(expr)
+        bad = deps - set(t.schema.names)
+        if bad:
+            raise ValueError(f"generated column {n!r} references unknown columns {sorted(bad)}")
+        if t.autoinc_col and t.autoinc_col in deps:
+            raise ValueError(f"generated column {n!r} cannot depend on the AUTO_INCREMENT column")
+        # every existing generated column is defined earlier, so the list
+        # stays in evaluation order
+        t.alter_add_column(cd.name, cd.type, None)
+        t.generated = list(t.generated) + [(n, txt, bool(stored))]
+        t._gen_exprs = None
+        self._recompute_generated(t)
+
     # -- indexes -----------------------------------------------------------
     def _add_index(self, t, name: str, columns, unique: bool = False) -> None:
         """ADD INDEX through WRITE_ONLY (writers maintain and check it,
@@ -154,7 +307,9 @@ class DDLMixin:
     # -- ALTER TABLE -----------------------------------------------------------
     def _run_alter_table(self, s: ast.AlterTable) -> None:
         t = self.catalog.table(s.db or self.db, s.name)
-        if s.action == "add":
+        if s.action == "add" and s.column.generated is not None:
+            self._alter_add_generated(t, s)
+        elif s.action == "add":
             default = s.default
             coerced = None
             if s.default is not None:
@@ -197,11 +352,18 @@ class DDLMixin:
             t.defaults.pop(cn, None)
             t.bump_version()
         elif s.action == "rename_col":
+            self._guard_column_refs(t, s.db or self.db, s.name, s.col_name.lower(), "rename")
             t.alter_rename_column(s.col_name, s.new_name)
         elif s.action == "rename":
             self.catalog.rename_table(s.db or self.db, s.name, s.db or self.db, s.new_name)
         else:  # drop
+            cn = s.col_name.lower()
+            self._guard_column_refs(t, s.db or self.db, s.name, cn, "drop")
             t.alter_drop_column(s.col_name)
+            if any(g[0] == cn for g in t.generated):
+                # dropping a generated column removes its rule
+                t.generated = [g for g in t.generated if g[0] != cn]
+                t._gen_exprs = None
         self.catalog.schema_version += 1
         # a renamed table's columns are released, as RENAME TABLE's are
         self._drop_cached(release=[t] if s.action == "rename" else (), invalidate=[t])
@@ -217,8 +379,16 @@ class DDLMixin:
         types = t.schema.types
         if old_name not in types:
             raise ValueError(f"unknown column {old_name!r}")
+        self._reject_generated_targets(t, [old_name], "MODIFY")
         if s.column.generated is not None:
             raise ValueError("cannot convert a column to GENERATED with MODIFY/CHANGE")
+        if new_name != old_name:
+            # a rename would orphan a dependent expression's text: refused
+            # on both paths before anything is published
+            for gc, ex in self._gen_exprs_for(t):
+                if old_name in check_columns(ex):
+                    raise ValueError(
+                        f"cannot rename column {old_name!r}: used by generated column {gc!r}")
         if new_name != old_name and new_name in types:
             raise ValueError(f"column {new_name!r} exists")
         old_t, new_t = types[old_name], s.column.type
@@ -231,10 +401,12 @@ class DDLMixin:
                     raise ValueError(f"column {old_name!r} contains NULLs: cannot add NOT NULL")
         if CV.meta_only(old_t, new_t):
             if new_name != old_name:
+                self._guard_column_refs(t, s.db or self.db, s.name, old_name, "rename")
                 t.alter_rename_column(old_name, new_name)
             else:
                 t.bump_version()
         else:
+            self._guard_column_refs(t, s.db or self.db, s.name, old_name, "modify")
             pk = t.schema.primary_key
             if pk and old_name in pk:
                 raise ValueError(
@@ -284,6 +456,9 @@ class DDLMixin:
                 dflt[new_name] = v
             except (ValueError, TypeError):
                 pass  # a default that does not convert is dropped
+        # stored generated columns over the converted column recompute
+        if any(old_name in check_columns(ex) for _c, ex in self._gen_exprs_for(t)):
+            self._recompute_generated(t)
 
     def _run_multi_alter(self, s: ast.MultiAlter) -> None:
         """Comma-separated ALTER specs, applied in order; when one fails,
@@ -303,6 +478,9 @@ class DDLMixin:
             "unique_indexes": set(t.unique_indexes),
             "index_states": dict(t.index_states),
             "defaults": dict(t.defaults),
+            "generated": list(t.generated),
+            "checks": list(t.checks),
+            "fks": (list(t.fks), dict(t.fk_actions), dict(t.fk_update_actions)),
             "autoinc": (t.autoinc_col, t.autoinc_next),
             "blocks": list(t.blocks()),
             "dictionaries": dict(t.dictionaries),
@@ -316,6 +494,10 @@ class DDLMixin:
             t.unique_indexes = snap["unique_indexes"]
             t.index_states = snap["index_states"]
             t.defaults = snap["defaults"]
+            t.generated = snap["generated"]
+            t._gen_exprs = None
+            t.checks = snap["checks"]
+            t.fks, t.fk_actions, t.fk_update_actions = snap["fks"]
             t.autoinc_col, t.autoinc_next = snap["autoinc"]
             t.dictionaries = snap["dictionaries"]
             t.replace_blocks(snap["blocks"], modified_rows=0)

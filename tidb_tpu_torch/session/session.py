@@ -127,6 +127,7 @@ from tidb_tpu_torch.planner import build_query
 from tidb_tpu_torch.planner.logical import ExprBinder, Schema, _display_name, _scalar_subq
 from tidb_tpu_torch.planner.physical import PhysicalExecutor, StaleWidthsError
 from tidb_tpu_torch.planner.streamed import try_streamed_sort
+from tidb_tpu_torch.session.constraints import ConstraintMixin
 from tidb_tpu_torch.session.ddl import DDLMixin, unported_alter
 from tidb_tpu_torch.stats import analyze_table
 from tidb_tpu_torch.stats.handle import maybe_auto_analyze
@@ -138,6 +139,7 @@ from tidb_tpu_torch.storage.table import set_gc_life
 from tidb_tpu_torch.tools.dump import create_table_sql
 from tidb_tpu_torch.utils import collate as _coll
 from tidb_tpu_torch.utils.collate import CHARSET_DEFAULTS
+from tidb_tpu_torch.utils.checkeval import check_columns
 from tidb_tpu_torch.utils.metrics import sql_digest
 from tidb_tpu_torch.utils.sqlkiller import SQLKiller
 from tidb_tpu_torch.utils.sysvar import SysVars
@@ -147,8 +149,6 @@ _DML = (ast.Insert, ast.Update, ast.Delete)
 
 #: statements this slice leaves out, by the name the error gives them
 _UNPORTED = {
-    ast.CreateView: "views (CREATE VIEW)",
-    ast.DropView: "views (DROP VIEW)",
     ast.CreateSequence: "sequences (CREATE SEQUENCE)",
     ast.DropSequence: "sequences (DROP SEQUENCE)",
     ast.LoadData: "LOAD DATA",
@@ -203,6 +203,17 @@ def _walk_dataclasses(obj, fn, _seen=None):
     fn(obj)
     for f in dataclasses.fields(obj):
         _walk_dataclasses(getattr(obj, f.name), fn, _seen)
+
+
+def _without_literal_rows(s):
+    """An INSERT whose VALUES rows are literals only, with the rows left
+    out: the whole-statement walks (table references, refused clauses)
+    find nothing in literals, and walking a 1,000-row VALUES list costs
+    more than the INSERT itself."""
+    if isinstance(s, ast.Insert) and s.rows and all(
+            type(v) is ast.Const for row in s.rows for v in row):
+        return dataclasses.replace(s, rows=[])
+    return s
 
 
 def _count_params(stmt) -> int:
@@ -339,7 +350,7 @@ _CONST_HOST_OPS = set(_CONST_BINARY) | {
 }
 
 
-class Session(DDLMixin):
+class Session(DDLMixin, ConstraintMixin):
     def __init__(
         self,
         catalog: Optional[Catalog] = None,
@@ -482,7 +493,8 @@ class Session(DDLMixin):
         self._stmt_as_of = {}
         if isinstance(inner, _READS):
             self._stmt_as_of = self._collect_as_of(inner)
-        elif any(r.as_of is not None for r in ast.iter_table_refs(inner)):
+        elif any(r.as_of is not None
+                 for r in ast.iter_table_refs(_without_literal_rows(inner))):
             raise ValueError("AS OF TIMESTAMP is only allowed in read-only statements")
 
     def _dispatch(self, s) -> Result:
@@ -510,10 +522,16 @@ class Session(DDLMixin):
                 _scan.release(t)
             return Result([], [])
         if isinstance(s, ast.TruncateTable):
+            # the rows go first, then the children's ON DELETE actions
+            # against empty sets; a RESTRICT restores every table
             t = self._resolve_table_for_write(s.db or self.db, s.name)
-            t.replace_blocks([], modified_rows=t.nrows)
+            self._clear_with_actions(t, s.db or self.db, s.name, t.nrows)
             t.autoinc_next = 1  # TRUNCATE resets AUTO_INCREMENT (DDL)
-            _scan.invalidate(t)
+            return Result([], [])
+        if isinstance(s, ast.CreateView):
+            return self._run_create_view(s)
+        if isinstance(s, ast.DropView):
+            self.catalog.drop_view(s.db or self.db, s.name, s.if_exists)
             return Result([], [])
         if isinstance(s, ast.CreateDatabase):
             self.catalog.create_database(s.name, s.if_not_exists)
@@ -637,8 +655,6 @@ class Session(DDLMixin):
         leaves out, or a clause whose effect it does not port (one that
         would be read and then ignored), naming it."""
         what = _UNPORTED.get(type(s))
-        if isinstance(s, ast.Show) and s.what == "create_view":
-            what = "views (SHOW CREATE VIEW)"
         if what is not None:
             raise NotImplementedError(f"{what} is not ported yet")
         for spec in s.specs if isinstance(s, ast.MultiAlter) else [s]:
@@ -671,7 +687,7 @@ class Session(DDLMixin):
                 if why is not None:
                     found.append(why)
 
-        _walk_dataclasses(s, see)
+        _walk_dataclasses(_without_literal_rows(s), see)
         return found[0] if found else None
 
     def _apply_sysvars(self) -> None:
@@ -729,8 +745,10 @@ class Session(DDLMixin):
             _walk_dataclasses(node, lambda n: refs.append(n) if isinstance(n, ast.TableRef) else None)
             for tr in refs:
                 db = (tr.db or self.db).lower()
-                # CTE names and derived tables are not catalog tables
-                if self.catalog.has_table(db, tr.name):
+                # CTE names and derived tables are not catalog tables; a
+                # view is checked by its own name (its tables were checked
+                # against its creator at CREATE VIEW)
+                if self.catalog.has_table(db, tr.name) or self.catalog.has_view(db, tr.name):
                     self._check_priv("select", db, tr.name.lower())
 
         if isinstance(s, _READS + (ast.Explain,)):
@@ -746,7 +764,18 @@ class Session(DDLMixin):
             self._check_priv("create", (s.db or self.db).lower())
             if s.as_query is not None:
                 reads(s.as_query)
-        elif isinstance(s, (ast.DropTable, ast.TruncateTable)):
+        elif isinstance(s, ast.CreateView):
+            self._check_priv("create", (s.db or self.db).lower())
+            # the creator must read every source now; bare names resolve
+            # in the view's database, as the expansion resolves them
+            refs = []
+            _walk_dataclasses(s.query, lambda n: refs.append(n)
+                              if isinstance(n, ast.TableRef) else None)
+            for tr in refs:
+                db = (tr.db or s.db or self.db).lower()
+                if self.catalog.has_table(db, tr.name) or self.catalog.has_view(db, tr.name):
+                    self._check_priv("select", db, tr.name.lower())
+        elif isinstance(s, (ast.DropTable, ast.TruncateTable, ast.DropView)):
             # MySQL requires DROP for TRUNCATE (it is DDL)
             self._check_priv("drop", (s.db or self.db).lower(), s.name.lower())
         elif isinstance(s, (ast.CreateDatabase, ast.DropDatabase)):
@@ -819,7 +848,9 @@ class Session(DDLMixin):
         other column is the same."""
         pat = s.db or "%"
         if s.what == "tables":
-            return Result(["Tables"], [(t,) for t in self.catalog.tables(self.db)])
+            # base tables and views in one sorted listing
+            return Result(["Tables"], [(t,) for t in sorted(
+                self.catalog.tables(self.db) + self.catalog.views(self.db))])
         if s.what == "databases":
             return Result(["Databases"], [(d,) for d in self.catalog.databases()])
         if s.what == "warnings":
@@ -856,6 +887,8 @@ class Session(DDLMixin):
                 width = sum(8 if ty.kind != Kind.STRING else 32 for _c, ty in t.schema.columns)
                 rows.append((tn, "tidb_tpu", 10, "Fixed", n, width, n * width,
                              t.autoinc_next if t.autoinc_col else None, "utf8mb4_bin", ""))
+            rows += [(vn, None, None, None, None, None, None, None, None, "VIEW")
+                     for vn in self.catalog.views(self.db) if sql_like_match(vn, pat, ci=True)]
             return Result(cols, rows)
         if s.what == "collation":
             rows = [
@@ -908,12 +941,20 @@ class Session(DDLMixin):
                         val = "ON" if val else "OFF"
                     rows.append((name, str(val)))
             return Result(["Variable_name", "Value"], rows)
-        # the per-table forms: columns, create_table, index
+        # the per-table forms: columns, create_table, create_view, index
         db, name = s.db.split(".", 1)
         db = db or self.db
         what = {"columns": "SHOW COLUMNS", "create_table": "SHOW CREATE",
-                "index": "SHOW INDEX"}[s.what]
+                "create_view": "SHOW CREATE", "index": "SHOW INDEX"}[s.what]
         self._require_some_table_priv(db, name, what, extra=("index",) if s.what == "index" else ())
+        if s.what == "create_view":
+            vdef = self.catalog.view_def(db, name)
+            if vdef is None:
+                raise ValueError(f"unknown view {db}.{name}")
+            sql_text, vcols = vdef
+            collist = f" ({', '.join(vcols)})" if vcols else ""
+            return Result(["View", "Create View"],
+                          [(name.lower(), f"CREATE VIEW `{name.lower()}`{collist} AS {sql_text}")])
         t = self.catalog.table(db, name)
         if s.what == "create_table":
             return Result(["Table", "Create Table"],
@@ -1476,6 +1517,11 @@ class Session(DDLMixin):
             shadow.autoinc_col = t.autoinc_col
             shadow.autoinc_next = t.autoinc_next
             shadow.defaults = dict(t.defaults)
+            shadow.checks = list(t.checks)
+            shadow.fks = list(t.fks)
+            shadow.fk_actions = dict(t.fk_actions)
+            shadow.fk_update_actions = dict(t.fk_update_actions)
+            shadow.generated = list(t.generated)
             # the uniqueness and range indexes are keyed by block uids:
             # the shadow's blocks are the snapshot's, so they carry over
             shadow._key_cache = dict(t._key_cache)
@@ -1757,11 +1803,8 @@ class Session(DDLMixin):
         db = s.db or self.db
         for what, present in (
             ("temporary tables", s.temporary),
-            ("FOREIGN KEY", s.fks),
-            ("CHECK", s.checks),
             ("PARTITION BY", s.partition is not None),
             ("TTL", s.ttl is not None),
-            ("generated columns", any(c.generated is not None for c in s.columns)),
         ):
             if present:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -1771,15 +1814,18 @@ class Session(DDLMixin):
             src = self.catalog.table(s.like[0] or self.db, s.like[1])
             if s.if_not_exists and self.catalog.has_table(db, s.name):
                 return Result([], [])
-            # the definition, not the data; AUTO_INCREMENT restarts. The
-            # JAX package clones through its rendered DDL, which carries
-            # no ENUM, SET or JSON domain, so neither does this
+            # the definition, not the data or the FOREIGN KEYs;
+            # AUTO_INCREMENT restarts. The JAX package clones through its
+            # rendered DDL, which carries no ENUM, SET or JSON domain, so
+            # neither does this
             pk = src.schema.primary_key
             t = self.catalog.create_table(db, s.name, TableSchema(
                 list(src.schema.columns), primary_key=list(pk) if pk else None,
                 not_null=tuple(src.schema.not_null)))
             t.autoinc_col = src.autoinc_col
             t.defaults = dict(src.defaults)
+            t.checks = list(src.checks)
+            t.generated = list(src.generated)
             for iname, icols in sorted(src.indexes.items()):
                 self._add_index(t, iname, icols, unique=iname in src.unique_indexes)
             return Result([], [])
@@ -1793,9 +1839,31 @@ class Session(DDLMixin):
             json_cols=tuple(c.name.lower() for c in s.columns if c.is_json),
             not_null=tuple(c.name.lower() for c in s.columns if c.not_null),
         )
+        # every clause is checked before the table exists: a DDL error
+        # leaves nothing half created
         auto = [c for c in s.columns if c.auto_increment]
         if auto and (len(auto) > 1 or auto[0].type.kind != Kind.INT):
             raise ValueError("one integer AUTO_INCREMENT column per table")
+        colnames = {c.name.lower() for c in s.columns}
+        gen_meta = self._validate_generated(s, auto, colnames)
+        for nm, _txt, expr in s.checks:
+            missing = check_columns(expr) - colnames
+            if missing:
+                raise ValueError(f"CHECK {nm!r} references unknown columns {sorted(missing)}")
+        fks = []
+        for nm, col, rdb, rtbl, rcol in s.fks:
+            rdb = (rdb or db).lower()
+            rtbl, rcol, col = rtbl.lower(), rcol.lower(), col.lower()
+            if col not in colnames:
+                raise ValueError(f"FOREIGN KEY column {col!r} unknown")
+            if rdb == db.lower() and rtbl == s.name.lower():
+                if rcol not in colnames:
+                    raise ValueError(f"FOREIGN KEY references unknown column {rcol!r}")
+            else:
+                pt = self.catalog.table(rdb, rtbl)  # raises when it is missing
+                if rcol not in pt.schema.names:
+                    raise ValueError(f"FOREIGN KEY references unknown column {rdb}.{rtbl}.{rcol}")
+            fks.append((nm, col, rdb, rtbl, rcol))
         existed = s.if_not_exists and self.catalog.has_table(db, s.name)
         t = self.catalog.create_table(db, s.name, schema, s.if_not_exists)
         if not existed:
@@ -1803,7 +1871,40 @@ class Session(DDLMixin):
                 self._add_index(t, iname, icols, unique=bool(uq and uq[0]))
             if auto:
                 t.autoinc_col = auto[0].name.lower()
+            t.checks = [(nm, txt) for nm, txt, _e in s.checks]
+            t.fks = fks
+            t.fk_actions = {nm.lower(): act for nm, act in (s.fk_actions or {}).items()
+                            if act != "restrict"}
+            t.fk_update_actions = {nm.lower(): act
+                                   for nm, act in (s.fk_update_actions or {}).items()
+                                   if act != "restrict"}
             t.defaults = {c.name.lower(): c.default for c in s.columns if c.default is not None}
+            t.generated = gen_meta
+            # the reverse FOREIGN KEY map is keyed by the schema version
+            self.catalog.schema_version += 1
+        return Result([], [])
+
+    def _run_create_view(self, s: ast.CreateView) -> Result:
+        """CREATE [OR REPLACE] VIEW: the body is planned now, so an
+        unknown table or column, a column list of the wrong length or a
+        repeated name fails at CREATE; the text is stored and planned
+        again at each use. Bare names are qualified with the view's
+        database first, as the expansion qualifies them."""
+        from tidb_tpu_torch.planner.logical import qualify_view_body
+
+        db = (s.db or self.db).lower()
+        if self.catalog.has_view(db, s.name) and not s.or_replace:
+            raise ValueError(f"view {s.name} exists")
+        qualify_view_body(s.query, db)
+        plan = build_query(s.query, self.catalog, db, self._scalar_subquery)
+        names = [c.lower() for c in (s.columns or [])] or [c.name for c in plan.schema.cols]
+        if s.columns and len(s.columns) != len(plan.schema.cols):
+            raise ValueError(
+                f"view column list has {len(s.columns)} names but "
+                f"SELECT yields {len(plan.schema.cols)} columns")
+        if len(set(names)) != len(names):
+            raise ValueError("duplicate column name in view")
+        self.catalog.create_view(db, s.name, s.query_sql, s.columns, s.or_replace)
         return Result([], [])
 
     def _run_ctas(self, s: ast.CreateTable, db: str) -> Result:
@@ -1862,6 +1963,17 @@ class Session(DDLMixin):
                 raise ValueError("VALUES arity mismatch")
             vals = {c: self._const_value(v) for c, v in zip(cols, row)}
             rows.append([vals[n] if n in vals else dflt.get(n) for n in names])
+        gen_cols = {c for c, _txt, _st in t.generated}
+        if gen_cols:
+            # a generated column takes DEFAULT or NULL only: it is computed
+            tgt = [(names.index(c), c) for c in gen_cols if c in cols]
+            for r in rows:
+                for gi, gc in tgt:
+                    if r[gi] is not None:
+                        raise ValueError(
+                            f"the value specified for generated column {gc!r} is not allowed")
+            if s.on_dup:
+                self._reject_generated_targets(t, [c.lower() for c, _e in s.on_dup], "assign")
         ac = t.autoinc_col
         if ac is not None:
             ai = names.index(ac)
@@ -1874,6 +1986,11 @@ class Session(DDLMixin):
                 for k, r in enumerate(missing):
                     r[ai] = start + k
                 self.last_insert_id = start
+        # generated columns over the final base values, before the key
+        # matching of ON DUPLICATE KEY UPDATE and again after it; then the
+        # constraints, before anything is written
+        self._fill_generated(t, rows)
+        db = s.db or self.db
         n_upd = 0
         if s.ignore:
             rows = self._fill_ignore_null_pk(t, names, rows)
@@ -1881,10 +1998,13 @@ class Session(DDLMixin):
         origin: dict = {}
         if s.on_dup:
             rows, origin, n_upd = self._apply_on_dup(t, names, rows, s.on_dup)
+            self._fill_generated(t, rows)
         if s.ignore:
             before = len(rows)
-            rows = self._filter_ignore(t, names, rows, skip_unique=bool(s.on_dup))
+            rows = self._filter_ignore(t, db, names, rows, skip_unique=bool(s.on_dup))
             n_incoming -= before - len(rows)
+        else:
+            self._enforce_write_constraints(t, db, rows)
         # the stored rows an ON DUPLICATE KEY UPDATE rewrote, by their
         # keys, for the rewritten rows that survived IGNORE
         del_keys: dict = {}
@@ -1894,12 +2014,19 @@ class Session(DDLMixin):
         del_keys = {kc: list(d.values()) for kc, d in del_keys.items()}
         mutates = s.replace or any(del_keys.values())
         saved = (list(t.blocks()), dict(t.dictionaries)) if mutates else None
+        children = self._fk_children(db, s.table) if mutates else []
         try:
             if s.replace:
                 self._replace_conflicts(t, names, rows)
             if any(del_keys.values()):
                 self._delete_rows_by_keys(t, del_keys)
             t.append_rows(rows)
+            if children:
+                # REPLACE and ON DUPLICATE KEY UPDATE remove or rewrite
+                # stored rows: the children must still find their keys
+                # in the post-statement rows (RESTRICT)
+                self._enforce_parent_constraints(db, s.table, {
+                    c: self._table_keyset(t, c) for c in self._parent_need(t, db, children)})
         except Exception:
             if saved is not None:
                 t.replace_blocks(saved[0], modified_rows=len(rows))
@@ -2025,13 +2152,22 @@ class Session(DDLMixin):
         pos = np.clip(np.searchsorted(sorted_keys, bview), 0, len(sorted_keys) - 1)
         return ballv & (sorted_keys[pos] == bview), bview, ballv
 
-    def _filter_ignore(self, t, names, rows, skip_unique=False):
-        """INSERT IGNORE: drop (instead of fail) rows whose PRIMARY KEY or
-        a UNIQUE key is already stored or repeats an earlier row of the
-        statement. skip_unique: ON DUPLICATE KEY UPDATE already resolved
-        the key conflicts."""
-        if skip_unique or not rows:
+    def _filter_ignore(self, t, db, names, rows, skip_unique=False):
+        """INSERT IGNORE: drop (instead of fail) rows that fail a CHECK or
+        a FOREIGN KEY, or whose PRIMARY KEY or a UNIQUE key is already
+        stored or repeats an earlier kept row of the statement.
+        skip_unique: ON DUPLICATE KEY UPDATE already resolved the key
+        conflicts."""
+        if not rows:
             return rows
+        passes = self._ignore_constraint_mask(t, db, names, rows) if t.checks or t.fks else None
+        if skip_unique:
+            return rows if passes is None else [r for r, ok in zip(rows, passes) if ok]
+        return self._filter_ignore_keys(t, names, rows, passes)
+
+    def _filter_ignore_keys(self, t, names, rows, passes):
+        """`_filter_ignore`'s key conflicts over the rows that pass their
+        constraints (`passes`, None: all): a dropped row claims no key."""
         key_state = []
         key_sets = self._unique_key_sets(t)
         inc = self._incoming_key_views(t, key_sets, names, rows, {})
@@ -2046,6 +2182,8 @@ class Session(DDLMixin):
             key_state.append((view, allv, in_table, set()))
         kept = []
         for j, r in enumerate(rows):
+            if passes is not None and not passes[j]:
+                continue
             if any(allv[j] and (in_table[j] or view[j].tobytes() in seen)
                    for view, allv, in_table, seen in key_state):
                 continue
@@ -2236,20 +2374,18 @@ class Session(DDLMixin):
     def _run_delete(self, s: ast.Delete) -> Result:
         if s.targets is not None:
             return self._run_delete_multi(s)
-        t = self._resolve_table_for_write(s.db or self.db, s.table)
+        db = s.db or self.db
+        t = self._resolve_table_for_write(db, s.table)
         if s.where is None and not (s.limit is not None or s.order_by):
             affected = t.nrows
-            t.replace_blocks([], modified_rows=affected)
-            self._drop_cached(invalidate=[t])
+            self._clear_with_actions(t, db, s.table, affected)
             return Result([], [], affected=affected)
         if s.where is None:
             masks = [np.ones(b.nrows, dtype=bool) for b in t.blocks()]
         else:
-            masks, affected = self._eval_where_per_block(t, s.db or self.db, s.where)
+            masks, affected = self._eval_where_per_block(t, db, s.where)
         masks, affected = self._dml_order_limit_masks(t, masks, s.order_by, s.limit)
-        t.delete_where([~m for m in masks])
-        self._drop_cached(invalidate=[t])
-        return Result([], [], affected=affected)
+        return self._delete_masked(t, db, s.table, masks, affected)
 
     # -- UPDATE --------------------------------------------------------
     def _run_update(self, s: ast.Update) -> Result:
@@ -2280,6 +2416,7 @@ class Session(DDLMixin):
             in_pred = ast.Call("in", [ast.Name(None, pk[0])] + [ast.Const(v) for v in vals])
             s = dataclasses.replace(s, where=in_pred, order_by=[], limit=None)
         sets = {c.lower(): e for c, e in s.sets}
+        self._reject_generated_targets(t, sets, "SET")
         fast = self._try_columnar_update(t, s, sets)
         if fast is not None:
             return fast
@@ -2293,17 +2430,29 @@ class Session(DDLMixin):
             items.append(ast.SelectItem(expr, alias=n))
         r = self._run_select(ast.Select(items=items, from_=ast.TableRef(s.db, s.table, None)))
         rows = [list(row) for row in r.rows]
+        db = s.db or self.db
+        # `rows` is the table's whole post-image: generated columns,
+        # CHECK and the child side of every FK over it, then the parent
+        # side (each child's ON UPDATE action) against its value sets
+        self._fill_generated(t, rows)
+        self._enforce_write_constraints(t, db, rows)
+        undo: list = []
+        plans = self._rewrite_update_guard(t, db, s.table, t.schema.names, rows, undo)
         if s.where is None:
             affected = len(rows)
         else:
-            _masks, affected = self._eval_where_per_block(t, s.db or self.db, s.where)
+            _masks, affected = self._eval_where_per_block(t, db, s.where)
         saved_blocks, saved_dicts = list(t.blocks()), dict(t.dictionaries)
         t.replace_blocks([], modified_rows=affected)
         try:
             if rows:
                 t.append_rows(rows)
+            self._apply_fk_update_plans(plans, undo)
         except Exception:
-            # e.g. the SET made duplicate keys: the statement rolls back
+            # e.g. the SET made duplicate keys, or a cascade failed: the
+            # statement rolls back, children first (a self-referential
+            # child's snapshot was taken after the append)
+            self._fk_undo_restore(undo)
             t.replace_blocks(saved_blocks, modified_rows=affected)
             t.dictionaries = saved_dicts
             raise
@@ -2402,11 +2551,13 @@ class Session(DDLMixin):
         live = np.nonzero(batch.row_valid.numpy())[0]
         affected = 0
         saved: list = []  # (table, blocks, dictionaries, modified rows)
+        undo: list = []  # every table a referential action touched
         try:
             pos = 0
             for alias in aliases:
                 tr = refs[alias]
-                t = self._resolve_table_for_write((tr.db or self.db).lower(), tr.name)
+                db = (tr.db or self.db).lower()
+                t = self._resolve_table_for_write(db, tr.name)
                 hcol = batch.cols[out_cols[pos].internal]
                 h = hcol.data.numpy()[live]
                 hv = hcol.valid.numpy()[live]
@@ -2421,6 +2572,7 @@ class Session(DDLMixin):
                 if handles[0] < 0 or handles[-1] >= nrows:
                     raise ValueError("stale row handle in UPDATE")
                 sets = [c for c, _e in per[alias]]
+                self._reject_generated_targets(t, sets, "SET")
                 saved.append((t, list(t.blocks()), dict(t.dictionaries), len(handles)))
                 if set(sets) & set(self._unique_key_cols(t)) or any(
                         t.schema.types[c].kind == Kind.STRING for c in sets):
@@ -2428,20 +2580,22 @@ class Session(DDLMixin):
                         Batch({c.internal: batch.cols[c.internal] for c in vcols},
                               batch.row_valid),
                         vcols, dicts)
-                    self._rewrite_by_handles(t, handles, [new[i] for i in rows_at], sets)
+                    self._rewrite_by_handles(t, db, tr.name, handles, [new[i] for i in rows_at],
+                                             sets, undo)
                 else:
                     vals = {c: (batch.cols[vc.internal].data.numpy()[live[rows_at]],
                                 batch.cols[vc.internal].valid.numpy()[live[rows_at]])
                             for c, vc in zip(sets, vcols)}
-                    self._scatter_by_handles(t, handles, vals)
+                    self._scatter_by_handles(t, db, tr.name, handles, vals, undo)
                 affected += len(handles)
         except Exception:
+            self._fk_undo_restore(undo)
             for t2, blocks2, dicts2, mod2 in reversed(saved):
                 t2.replace_blocks(blocks2, modified_rows=mod2)
                 t2.dictionaries = dicts2
             raise
         finally:
-            self._drop_cached(invalidate=[x[0] for x in saved])
+            self._drop_cached(invalidate=[x[0] for x in saved] + [u[0] for u in undo])
         return Result([], [], affected=affected)
 
     @staticmethod
@@ -2451,32 +2605,29 @@ class Session(DDLMixin):
         bi = np.searchsorted(starts, handles, side="right") - 1
         return bi, handles - starts[bi]
 
-    def _scatter_by_handles(self, t, handles, vals) -> None:
+    def _scatter_by_handles(self, t, db, name, handles, vals, undo) -> None:
         """Write encoded new values {column: (data, valid)} at ascending
-        row handles into copies of the touched blocks. The modify count
-        grows as the JAX package's row rewrite makes it grow (the rows
-        updated plus the table's rows)."""
+        row handles into copies of the touched blocks, with the checks of
+        ``_install_columnar``. The modify count grows as the JAX
+        package's row rewrite makes it grow (the rows updated plus the
+        table's rows)."""
         bi, ri = self._handle_positions(t, handles)
-        new_blocks = []
-        for i, block in enumerate(t.blocks()):
-            sel = bi == i
-            if not sel.any():
-                new_blocks.append(block)
-                continue
-            cols = dict(block.columns)
-            for c, (data, valid) in vals.items():
-                src = block.columns[c]
-                d, v = src.data.copy(), src.valid.copy()
-                d[ri[sel]] = data[sel].astype(d.dtype)
-                v[ri[sel]] = valid[sel]
-                cols[c] = dataclasses.replace(src, data=d, valid=v)
-            new_blocks.append(HostBlock(cols, block.nrows, part_id=block.part_id))
-        t.replace_blocks(new_blocks, modified_rows=len(handles) + t.nrows)
+        touched = [(i, ri[bi == i]) for i in np.unique(bi).tolist()]
+        if not self._install_columnar(t, db, name, touched, dict(vals),
+                                      len(handles) + t.nrows, undo):
+            # a recomputed generated value needs the rewrite
+            decs = {c: HostColumn(t.schema.types[c], d.astype(t.schema.types[c].np_dtype), v,
+                                  t.dictionaries.get(c)).decode().tolist()
+                    for c, (d, v) in vals.items()}
+            new_vals = [[decs[c][k] for c in vals] for k in range(len(handles))]
+            self._rewrite_by_handles(t, db, name, handles, new_vals, list(vals), undo)
 
-    def _rewrite_by_handles(self, t, handles, new_vals, sets) -> None:
+    def _rewrite_by_handles(self, t, db, name, handles, new_vals, sets, undo) -> None:
         """Rewrite the whole table from its decoded rows with the new
-        values of `sets` at ascending row handles: the append checks
-        every key and merges new strings into the dictionaries."""
+        values of `sets` at ascending row handles, as the JAX session
+        does: generated columns, CHECK and FOREIGN KEYs over the whole
+        image, the append's key checks and dictionary merges, then the
+        children's ON UPDATE actions."""
         names = t.schema.names
         cidx = [names.index(c) for c in sets]
         rows = []
@@ -2488,9 +2639,13 @@ class Session(DDLMixin):
         for h, new in zip(handles.tolist(), new_vals):
             for ci, v in zip(cidx, new):
                 rows[h][ci] = v
+        self._fill_generated(t, rows)
+        self._enforce_write_constraints(t, db, rows)
+        plans = self._rewrite_update_guard(t, db, name, names, rows, undo)
         t.replace_blocks([], modified_rows=len(handles))
         if rows:
             t.append_rows(rows)
+        self._apply_fk_update_plans(plans, undo)
 
     def _run_delete_multi(self, s: ast.Delete) -> Result:
         """DELETE t1[, t2] FROM <join> / DELETE FROM t USING <join>: one
@@ -2520,25 +2675,36 @@ class Session(DDLMixin):
             plan = build_query(sel, self.catalog, self.db, self._scalar_subquery)
             batch, _dicts = self.executor.run(plan)
         rv = batch.row_valid.numpy()
+        # every target's rows go first, at the handles of the statement's
+        # start; the referential actions run after all of them, so a
+        # cascade never moves rows a later target's handles point at
         total = 0
-        written = []
-        for alias, col in zip(resolved, plan.schema):
-            tr = refs[alias]
-            t = self._resolve_table_for_write((tr.db or self.db).lower(), tr.name)
-            c = batch.cols[col.internal]
-            hs = np.unique(c.data.numpy()[rv & c.valid.numpy()])
-            if not len(hs):
-                continue
-            bi, ri = self._handle_positions(t, hs)
-            masks = []
-            for i, b in enumerate(t.blocks()):
-                m = np.ones(b.nrows, dtype=bool)
-                m[ri[bi == i]] = False
-                masks.append(m)
-            t.delete_where(masks)
-            written.append(t)
-            total += len(hs)
-        self._drop_cached(invalidate=written)
+        undo: list = []
+        deferred: list = []
+        try:
+            for alias, col in zip(resolved, plan.schema):
+                tr = refs[alias]
+                db = (tr.db or self.db).lower()
+                t = self._resolve_table_for_write(db, tr.name)
+                c = batch.cols[col.internal]
+                hs = np.unique(c.data.numpy()[rv & c.valid.numpy()])
+                if not len(hs):
+                    continue
+                bi, ri = self._handle_positions(t, hs)
+                masks = []
+                for i, b in enumerate(t.blocks()):
+                    m = np.zeros(b.nrows, dtype=bool)
+                    m[ri[bi == i]] = True
+                    masks.append(m)
+                self._delete_masked(t, db, tr.name, masks, len(hs), undo=undo, deferred=deferred)
+                total += len(hs)
+            for act in deferred:
+                act()
+        except BaseException:
+            self._fk_undo_restore(undo)
+            raise
+        finally:
+            self._drop_cached(invalidate=[u[0] for u in undo])
         return Result([], [], affected=total)
 
     def _try_columnar_update(self, t, s: ast.Update, sets) -> Optional[Result]:
@@ -2548,7 +2714,15 @@ class Session(DDLMixin):
         uniqueness needs whole rows), a string SET other than a constant already in the
         column's dictionary, no WHERE, or an empty table. New values come
         from ``SELECT CAST(<expr> AS <column type>) ... WHERE <where>``,
-        in the blocks' row order."""
+        in the blocks' row order.
+
+        A SET of a CHECK column, an FK column, a referenced column or a
+        generated column's input keeps this form, where the JAX session
+        rewrites the whole table through Python rows: only the touched
+        rows are decoded, their generated columns recomputed and their
+        CHECKs and FOREIGN KEYs checked (``_install_columnar``). Every
+        stored row passed those checks when it was written, so the rows
+        and errors are the rewrite's."""
         types = t.schema.types
         if any(c not in types for c in sets):
             return None
@@ -2594,32 +2768,186 @@ class Session(DDLMixin):
                 raise RuntimeError(
                     f"UPDATE's new values ({len(order)} rows) lost their alignment "
                     f"with its WHERE ({affected} rows)")
-        new_blocks = []
-        consumed = 0
-        for block, m in zip(t.blocks(), masks):
-            hit = int(m.sum())
-            if hit == 0:
-                new_blocks.append(block)
-                continue
-            pos = np.nonzero(m)[0]
-            cols = dict(block.columns)
-            for c in set_cols:
-                src = block.columns[c]
-                data, valid = src.data.copy(), src.valid.copy()
-                data[pos] = new_data[c][consumed: consumed + hit].astype(data.dtype)
-                valid[pos] = new_valid[c][consumed: consumed + hit]
-                cols[c] = dataclasses.replace(src, data=data, valid=valid)
-            for c, code in str_codes.items():
-                src = block.columns[c]
-                data, valid = src.data.copy(), src.valid.copy()
-                data[pos] = np.asarray(code, dtype=data.dtype)
-                valid[pos] = True
-                cols[c] = dataclasses.replace(src, data=data, valid=valid)
-            consumed += hit
-            new_blocks.append(HostBlock(cols, block.nrows, part_id=block.part_id))
-        t.replace_blocks(new_blocks, modified_rows=affected)
-        self._drop_cached(invalidate=[t])
+        touched = [(i, np.nonzero(m)[0]) for i, m in enumerate(masks) if m.any()]
+        updated = {c: (new_data[c], new_valid[c]) for c in set_cols}
+        updated.update({c: (np.full(affected, code, dtype=np.int64), np.ones(affected, dtype=bool))
+                        for c, code in str_codes.items()})
+        db = s.db or self.db
+        constrained = self._constrained_cols(t, db, s.table) & set(sets)
+        undo: list = []
+        try:
+            done = self._install_columnar(
+                t, db, s.table, touched, updated,
+                # the JAX rewrite's count where it would rewrite
+                affected + t.nrows if constrained else affected, undo)
+        except Exception:
+            self._fk_undo_restore(undo)
+            raise
+        finally:
+            self._drop_cached(invalidate=[t] + [u[0] for u in undo])
+        if not done:
+            return None
         return Result([], [], affected=affected)
+
+    def _constrained_cols(self, t, db: str, name: str) -> set:
+        """The columns whose SET the JAX session sends to its rewrite
+        path: CHECK, FK and referenced columns and generated inputs."""
+        cols: set = set()
+        for _nm, ex in self._check_exprs_for(t):
+            cols |= check_columns(ex)
+        cols |= {col for _nm, col, *_r in t.fks}
+        cols |= {rc for _cd, _ct, _nm, _c, rc, _a in self._fk_children(db, name)}
+        for _c, ex in self._gen_exprs_for(t):
+            cols |= check_columns(ex)
+        return cols
+
+    def _install_columnar(self, t, db: str, name: str, touched, updated: dict,
+                          modified_rows: int, undo) -> bool:
+        """Write new encoded values into copies of the touched blocks.
+        `touched`: (block index, ascending row positions) per touched
+        block, in block order; `updated`: column -> (data, valid) aligned
+        to the touched rows in that order. Before anything is written the
+        generated columns that read an updated column are recomputed over
+        the touched rows, the CHECKs that read an updated column are
+        evaluated over them, the child side of each FK whose column
+        changed is searched and the parent side of each FK that
+        references a changed column is checked (RESTRICT) and planned
+        (CASCADE, SET NULL, applied after the install). Returns False,
+        having written nothing, when a recomputed generated value needs a
+        new dictionary entry or lands on a key column: the rewrite path
+        takes those."""
+        from tidb_tpu_torch.chunk import present_temporals
+
+        blocks = t.blocks()
+        types = t.schema.types
+        n = sum(len(p) for _i, p in touched)
+
+        def old_column(c):
+            parts = [blocks[i].columns[c] for i, _p in touched]
+            return HostColumn(types[c], np.concatenate([
+                pc.data[p] for pc, (_i, p) in zip(parts, touched)]) if parts else
+                np.zeros(0, types[c].np_dtype),
+                np.concatenate([pc.valid[p] for pc, (_i, p) in zip(parts, touched)])
+                if parts else np.zeros(0, bool), t.dictionaries.get(c))
+
+        gens = self._gen_exprs_for(t)
+        gen_needed = bool(gens) and any(check_columns(ex) & set(updated) for _c, ex in gens)
+        changed = set(updated) | ({c for c, _e in gens} if gen_needed else set())
+        checks = [(nm, ex) for nm, ex in self._check_exprs_for(t) if check_columns(ex) & changed]
+        fks = [fk for fk in t.fks if fk[1] in changed
+               or (fk[2] == db.lower() and fk[3] == t.name and fk[4] in changed)]
+        children = [c for c in self._fk_children(db, name)
+                    if c[4] in changed or (c[0] == db.lower() and c[1] == t.name and c[3] in changed)]
+        post: dict = {}  # column -> present-form values of the touched rows
+
+        def post_values(c):
+            if c not in post:
+                if c in updated:
+                    data, valid = updated[c]
+                    col = HostColumn(types[c], data.astype(types[c].np_dtype), valid,
+                                     t.dictionaries.get(c))
+                else:
+                    col = old_column(c)
+                post[c] = present_temporals(col).tolist()
+            return post[c]
+
+        if gen_needed:
+            if {c for c, _e in gens} & set(self._unique_key_cols(t)):
+                return False
+            reads: set = set()
+            for c, ex in gens:
+                reads |= check_columns(ex)
+            reads = sorted(reads & set(types))
+            rows = ([dict(zip(reads, vals)) for vals in zip(*[post_values(c) for c in reads])]
+                    if reads else [{} for _ in range(n)])
+            self._fill_generated(t, rows)
+            for c, _ex in gens:
+                vals = [rd[c] for rd in rows]
+                col = column_from_values(vals, types[c])
+                if types[c].kind == Kind.STRING:
+                    # codes of the table's dictionary; a new string needs
+                    # the rewrite's dictionary merge
+                    d = np.asarray(t.dictionaries.get(c, []), dtype=object)
+                    if not len(d):
+                        return False
+                    codes = np.clip(np.searchsorted(d, np.array(
+                        [v if v is not None else "" for v in vals], dtype=object)), 0, len(d) - 1)
+                    if any(v is not None and d[k] != v for v, k in zip(vals, codes.tolist())):
+                        return False
+                    col = HostColumn(types[c], codes.astype(np.int64), col.valid)
+                updated[c] = (col.data, col.valid)
+                post.pop(c, None)
+        if checks:
+            reads = set()
+            for _nm, ex in checks:
+                reads |= check_columns(ex)
+            reads = sorted(reads & set(types))
+            rows = [dict(zip(reads, vals)) for vals in zip(*[post_values(c) for c in reads])]
+            self._check_rows_with(checks, rows)
+        for nm, col, rdb, rtbl, rcol in fks:
+            if col not in changed:
+                continue
+            vals = post_values(col)
+            self_vals = post_values(rcol) if (rdb == db.lower() and rtbl == t.name) else None
+            self._fk_child_check(t, db, nm, col, rdb, rtbl, rcol, vals, self_vals)
+        plans = []
+        if children:
+            def old_new(c):
+                oc = old_column(c)
+                data, valid = updated[c]
+                if types[c].kind == Kind.STRING:
+                    d = np.asarray(t.dictionaries.get(c), dtype=object)
+                    return (d[oc.data][oc.valid] if len(d) else oc.data[:0]), oc.valid, \
+                        d[data] if len(d) else data, valid
+                return oc.data[oc.valid], oc.valid, data.astype(oc.data.dtype), valid
+
+            remaining = {}
+            for c in self._parent_need(t, db, children):
+                if c in updated:
+                    olds, _ov, news, nv = old_new(c)
+                    remaining[c] = self._keyset_after(t, c, olds, news[nv])
+                else:
+                    remaining[c] = self._table_keyset(t, c)
+
+            def pairs(rcol):
+                if rcol not in updated:
+                    # a self-referential child whose own column changed:
+                    # the unchanged parent key has nothing to cascade or null
+                    none = old_column(rcol).data[:0]
+                    return none, none, np.zeros(0, bool), None
+                olds, ov, news, nv = old_new(rcol)
+                base = self._table_keyset(t, rcol).base
+                counts = {}
+                for o in olds.tolist():
+                    counts[o] = counts.get(o, 0) + 1
+
+                def kept(old):
+                    have = int(np.searchsorted(base, old, side="right")
+                               - np.searchsorted(base, old, side="left"))
+                    key = old.item() if hasattr(old, "item") else old
+                    return have > counts.get(key, 0)
+
+                return olds, news[ov], nv[ov], kept
+
+            plans = self._fk_update_guard(t, db, name, children, remaining, pairs, undo)
+        self._fk_undo_snapshot(undo, t)
+        new_blocks = list(blocks)
+        consumed = 0
+        for i, pos in touched:
+            block = blocks[i]
+            k = len(pos)
+            cols = dict(block.columns)
+            for c, (data, valid) in updated.items():
+                src = block.columns[c]
+                d, v = src.data.copy(), src.valid.copy()
+                d[pos] = data[consumed: consumed + k].astype(d.dtype)
+                v[pos] = valid[consumed: consumed + k]
+                cols[c] = dataclasses.replace(src, data=d, valid=v)
+            consumed += k
+            new_blocks[i] = HostBlock(cols, block.nrows, part_id=block.part_id)
+        t.replace_blocks(new_blocks, modified_rows=modified_rows)
+        self._apply_fk_update_plans(plans, undo)
+        return True
 
     def _dml_order_limit_masks(self, t, masks, order_by, limit):
         """Restrict per-block DML masks (True = affected) to the first

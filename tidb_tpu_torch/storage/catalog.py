@@ -9,14 +9,20 @@ the user store (``users``), the GLOBAL sysvar store
 and the commit mutex (``_commit_mu``) under which a transaction's
 conflict check and install run.
 
+Views are stored as their SELECT text and column list per database
+(``create_view``, ``drop_view``, ``view_def``); the logical planner
+expands a view reference by planning that text. A table a FOREIGN KEY
+references cannot be dropped, nor the database holding it while a child
+outside it remains.
+
 information_schema: ``tables``, ``columns``, ``schemata``,
-``statistics``, ``table_constraints`` and ``key_column_usage`` are
-built from the catalog as the JAX package builds them, memoized per
-schema version and data fingerprint (a fresh table per statement would
-carry a fresh uid, and the executor would recompile its plan and re-copy
-its columns every time). The tables of features the port lacks (views,
-sequences, partitions, foreign keys) and the diagnostic tables refuse by
-name. Views, sequences and RENAME are not ported.
+``statistics``, ``table_constraints``, ``key_column_usage``,
+``referential_constraints`` and ``views`` are built from the catalog as
+the JAX package builds them, memoized per schema version and data
+fingerprint (a fresh table per statement would carry a fresh uid, and
+the executor would recompile its plan and re-copy its columns every
+time). The tables of features the port lacks (sequences, partitions)
+and the diagnostic tables refuse by name.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ class Catalog:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._dbs: Dict[str, Dict[str, Table]] = {"test": {}}
+        # views per database: name -> (SELECT text, column names or None)
+        self._views: Dict[str, Dict[str, tuple]] = {"test": {}}
+        # (schema version, (parent db, parent table) -> [child FK]): the
+        # reverse FOREIGN KEY map, built once per schema version
+        self._fk_child_cache = None
         # account + grant store (reference: mysql.user et al cached by
         # pkg/privilege); lives on the catalog so every session/server
         # over the same store shares one authority
@@ -68,12 +79,25 @@ class Catalog:
                     return
                 raise ValueError(f"database {name!r} exists")
             self._dbs[name] = {}
+            self._views[name] = {}
             self.schema_version += 1
 
     def drop_database(self, name: str) -> None:
         name = name.lower()
         with self._lock:
+            # a child outside the database that references a table in it
+            # blocks the drop (children inside go with it)
+            for d2, tabs in self._dbs.items():
+                if d2 == name:
+                    continue
+                for tn2, t2 in tabs.items():
+                    for nm, _c, rdb, rtbl, _rc in t2.fks:
+                        if rdb == name and rtbl in self._dbs.get(name, {}):
+                            raise ValueError(
+                                f"cannot drop database {name}: {name}.{rtbl} "
+                                f"is referenced by FOREIGN KEY {nm!r} on {d2}.{tn2}")
             self._dbs.pop(name, None)
+            self._views.pop(name, None)
             self.schema_version += 1
 
     def create_table(
@@ -87,6 +111,8 @@ class Catalog:
                 if if_not_exists:
                     return self._dbs[db][name]
                 raise ValueError(f"table {name!r} exists")
+            if name in self._views.get(db, {}):
+                raise ValueError(f"view {name!r} exists")
             t = Table(name, schema)
             self._dbs[db][name] = t
             self.schema_version += 1
@@ -96,15 +122,27 @@ class Catalog:
         db, name = db.lower(), name.lower()
         with self._lock:
             if name not in self._dbs.get(db, {}):
+                if name in self._views.get(db, {}):
+                    raise ValueError(f"{db}.{name} is a view (use DROP VIEW)")
                 if if_exists:
                     return
                 raise ValueError(f"unknown table {db}.{name}")
+            for d2, tabs in self._dbs.items():
+                for tn2, t2 in tabs.items():
+                    if d2 == db and tn2 == name:
+                        continue  # a self-referential FK never blocks
+                    for nm, _col, rdb, rtbl, _rc in t2.fks:
+                        if rdb == db and rtbl == name:
+                            raise ValueError(
+                                f"cannot drop {db}.{name}: referenced by "
+                                f"FOREIGN KEY {nm!r} on {d2}.{tn2}")
             del self._dbs[db][name]
             self.schema_version += 1
 
     def rename_table(self, db: str, name: str, new_db: str, new_name: str) -> None:
         """RENAME TABLE / ALTER TABLE ... RENAME TO: a move within the
-        catalog (the Table keeps its identity, rows and indexes)."""
+        catalog (the Table keeps its identity, rows and indexes). FOREIGN
+        KEYs that reference the table follow its new name."""
         db, name = db.lower(), name.lower()
         new_db, new_name = new_db.lower(), new_name.lower()
         with self._lock:
@@ -112,11 +150,17 @@ class Catalog:
                 raise ValueError(f"unknown table {db}.{name}")
             if new_db not in self._dbs:
                 raise ValueError(f"unknown database {new_db}")
-            if new_name in self._dbs[new_db]:
+            if new_name in self._dbs[new_db] or new_name in self._views.get(new_db, {}):
                 raise ValueError(f"table {new_db}.{new_name} exists")
             t = self._dbs[db].pop(name)
             t.name = new_name
             self._dbs[new_db][new_name] = t
+            for tabs in self._dbs.values():
+                for t2 in tabs.values():
+                    if t2.fks:
+                        t2.fks = [(nm, col, new_db, new_name, rcol) if (rdb, rtbl) == (db, name)
+                                  else (nm, col, rdb, rtbl, rcol)
+                                  for nm, col, rdb, rtbl, rcol in t2.fks]
             self.schema_version += 1
 
     def table(self, db: str, name: str) -> Table:
@@ -128,6 +172,8 @@ class Catalog:
         try:
             return self._dbs[db.lower()][name.lower()]
         except KeyError:
+            if name.lower() in self._views.get(db.lower(), {}):
+                raise ValueError(f"{db}.{name} is a view, not a base table") from None
             raise ValueError(f"unknown table {db}.{name}") from None
 
     def has_table(self, db: str, name: str) -> bool:
@@ -140,6 +186,84 @@ class Catalog:
 
     def databases(self) -> List[str]:
         return sorted(self._dbs)
+
+    # -- views -------------------------------------------------------------
+    def create_view(self, db: str, name: str, sql: str, columns=None,
+                    or_replace: bool = False) -> None:
+        db, name = db.lower(), name.lower()
+        with self._lock:
+            if db not in self._dbs:
+                raise ValueError(f"unknown database {db!r}")
+            if name in self._dbs[db]:
+                raise ValueError(f"table {name!r} exists")
+            if name in self._views[db] and not or_replace:
+                raise ValueError(f"view {name!r} exists")
+            self._views[db][name] = (sql, tuple(c.lower() for c in columns) if columns else None)
+            self.schema_version += 1
+
+    def drop_view(self, db: str, name: str, if_exists: bool = False) -> None:
+        db, name = db.lower(), name.lower()
+        with self._lock:
+            if name not in self._views.get(db, {}):
+                if if_exists:
+                    return
+                raise ValueError(f"unknown view {db}.{name}")
+            del self._views[db][name]
+            self.schema_version += 1
+
+    def view_def(self, db: str, name: str):
+        """(SELECT text, column names or None) of a view, else None."""
+        return self._views.get(db.lower(), {}).get(name.lower())
+
+    def has_view(self, db: str, name: str) -> bool:
+        return name.lower() in self._views.get(db.lower(), {})
+
+    def views(self, db: str) -> List[str]:
+        return sorted(self._views.get(db.lower(), {}))
+
+    def _view_columns(self, db: str, name: str):
+        """[(column, type)] of a view, by planning its body. A body that
+        cannot be planned alone (a scalar subquery needs a session)
+        yields no columns rather than failing the listing."""
+        vdef = self.view_def(db, name)
+        # a view over information_schema.columns would plan this listing
+        # again from inside itself
+        if vdef is None or getattr(self, "_planning_view_cols", False):
+            return []
+        self._planning_view_cols = True
+        sql_text, vcols = vdef
+        try:
+            from tidb_tpu_torch.parser import parse
+            from tidb_tpu_torch.planner.logical import build_query, qualify_view_body
+
+            stmt = parse(sql_text)[0]
+            qualify_view_body(stmt, db)
+            plan = build_query(stmt, self, db, None)
+            names = list(vcols) if vcols else [c.name for c in plan.schema]
+            return list(zip(names, [c.type for c in plan.schema.cols]))
+        except Exception:
+            return []
+        finally:
+            self._planning_view_cols = False
+
+    # -- FOREIGN KEYs --------------------------------------------------------
+    def fk_children(self, db: str, name: str) -> list:
+        """[(child db, child table, fk name, fk column, referenced column,
+        ON DELETE action)] of every FOREIGN KEY referencing db.name. The
+        reverse map is built once per schema version, so a write to a
+        table nothing references pays no walk over every table."""
+        cache = self._fk_child_cache
+        if cache is None or cache[0] != self.schema_version:
+            rev: dict = {}
+            with self._lock:
+                for d in sorted(self._dbs):
+                    for tn in sorted(self._dbs[d]):
+                        t2 = self._dbs[d][tn]
+                        for nm, col, rdb, rtbl, rcol in t2.fks:
+                            rev.setdefault((rdb, rtbl), []).append(
+                                (d, tn, nm, col, rcol, t2.fk_actions.get(nm.lower(), "restrict")))
+            cache = self._fk_child_cache = (self.schema_version, rev)
+        return cache[1].get((db.lower(), name.lower()), [])
 
     def next_conn_id(self) -> int:
         """A session's CONNECTION_ID(): catalog-wide, from 1."""
@@ -178,15 +302,22 @@ class Catalog:
             ]
 
     def _build_infoschema_table(self, name: str) -> Table:
-        """The rows of the JAX package's ``_build_infoschema_table`` for
-        the ported tables: primary keys, secondary and UNIQUE indexes.
-        The port's tables have no CHECKs or FOREIGN KEYs, so those rows
-        are absent."""
+        """The rows of the JAX package's ``_build_infoschema_table``:
+        tables and views, columns (a view's by planning its body),
+        primary keys, indexes, CHECKs, FOREIGN KEYs and their actions."""
         tables = self._user_tables()
+        with self._lock:
+            views = [(db, vn, self._views[db][vn]) for db in sorted(self._views)
+                     for vn in sorted(self._views[db])]
         if name == "tables":
             schema = TableSchema([("table_schema", STRING), ("table_name", STRING),
                                   ("table_rows", INT64)])
-            rows = [(db, tn, t.nrows) for db, tn, t in tables]
+            with self._lock:
+                dbs = [db for db in sorted(self._dbs) if not db.startswith("_")]
+            # each database's tables, then its views
+            rows = [r for db in dbs for r in
+                    [(db, tn, t.nrows) for d, tn, t in tables if d == db]
+                    + [(db, vn, 0) for d, vn, _v in views if d == db]]
         elif name == "columns":
             schema = TableSchema([("table_schema", STRING), ("table_name", STRING),
                                   ("column_name", STRING), ("ordinal_position", INT64),
@@ -194,6 +325,9 @@ class Catalog:
             rows = [(db, tn, cn, i, repr(ct).lower())
                     for db, tn, t in tables
                     for i, (cn, ct) in enumerate(t.schema.columns, 1)]
+            rows += [(db, vn, cn, i, repr(ct).lower())
+                     for db, vn, _v in views
+                     for i, (cn, ct) in enumerate(self._view_columns(db, vn), 1)]
         elif name == "statistics":
             schema = TableSchema([("table_schema", STRING), ("table_name", STRING),
                                   ("index_name", STRING), ("seq_in_index", INT64),
@@ -214,6 +348,8 @@ class Catalog:
                 if t.schema.primary_key:
                     rows.append((db, "PRIMARY", db, tn, "PRIMARY KEY"))
                 rows += [(db, iname, db, tn, "UNIQUE") for iname in sorted(t.unique_indexes)]
+                rows += [(db, nm, db, tn, "FOREIGN KEY") for nm, *_rest in t.fks]
+                rows += [(db, nm, db, tn, "CHECK") for nm, _txt in t.checks]
         elif name == "key_column_usage":
             schema = TableSchema([("constraint_name", STRING), ("table_schema", STRING),
                                   ("table_name", STRING), ("column_name", STRING),
@@ -228,6 +364,23 @@ class Catalog:
                 rows += [(iname, db, tn, c, i, None, None, None)
                          for iname in sorted(t.unique_indexes)
                          for i, c in enumerate(t.indexes.get(iname) or [], 1)]
+                rows += [(nm, db, tn, col, 1, rdb or db, rtbl, rcol)
+                         for nm, col, rdb, rtbl, rcol in t.fks]
+        elif name == "referential_constraints":
+            schema = TableSchema([("constraint_schema", STRING), ("constraint_name", STRING),
+                                  ("unique_constraint_schema", STRING),
+                                  ("update_rule", STRING), ("delete_rule", STRING),
+                                  ("table_name", STRING), ("referenced_table_name", STRING)])
+            # an action left unspecified shows as NO ACTION (RESTRICT in effect)
+            rule = {"cascade": "CASCADE", "set_null": "SET NULL", "restrict": "RESTRICT"}
+            rows = [(db, nm, rdb or db,
+                     rule.get(t.fk_update_actions.get(nm.lower()), "NO ACTION"),
+                     rule.get(t.fk_actions.get(nm.lower()), "NO ACTION"), tn, rtbl)
+                    for db, tn, t in tables for nm, _col, rdb, rtbl, _rcol in t.fks]
+        elif name == "views":
+            schema = TableSchema([("table_schema", STRING), ("table_name", STRING),
+                                  ("view_definition", STRING), ("definer", STRING)])
+            rows = [(db, vn, v[0], "root") for db, vn, v in views]
         else:  # schemata
             schema = TableSchema([("schema_name", STRING)])
             with self._lock:
@@ -239,14 +392,12 @@ class Catalog:
 
 
 _IS_BUILT = ("tables", "columns", "schemata", "statistics", "table_constraints",
-             "key_column_usage")
+             "key_column_usage", "referential_constraints", "views")
 
 #: information_schema tables the port refuses, with the feature they wait for
 IS_UNPORTED = {
-    "views": "views are not ported",
     "sequences": "sequences are not ported",
     "partitions": "partitions are not ported",
-    "referential_constraints": "FOREIGN KEY is not ported",
     **{n: "a diagnostic table: observability is not ported" for n in (
         "slow_query", "statements_summary", "statements_summary_history", "metrics",
         "top_sql", "tpu_engine", "memory_usage", "memory_usage_ops_history",

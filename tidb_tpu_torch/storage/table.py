@@ -20,8 +20,11 @@ reads through. ALTER TABLE's column forms publish a new version
 (``alter_add_column``, ``alter_drop_column``, ``alter_modify_column``,
 ``alter_rename_column``).
 
-Partitions, TTL, CHECK and FOREIGN KEY constraints, commit observers and
-the fleet's delta capture are not ported.
+A table also carries its constraint and generated-column metadata
+(``checks``, ``fks``, ``fk_actions``, ``fk_update_actions``,
+``generated``), which the session enforces on its write path.
+Partitions, TTL, commit observers and the fleet's delta capture are not
+ported.
 """
 
 from __future__ import annotations
@@ -180,6 +183,18 @@ class Table:
         self.autoinc_next = 1
         # column -> DEFAULT value for INSERTs that omit the column
         self.defaults: Dict[str, object] = {}
+        # CHECK constraints [(name, expression SQL text)]
+        self.checks: list = []
+        # FOREIGN KEYs [(name, column, ref db, ref table, ref column)];
+        # fk_actions: name -> ON DELETE action ("cascade" / "set_null"),
+        # fk_update_actions the same for ON UPDATE; a missing name is
+        # RESTRICT
+        self.fks: list = []
+        self.fk_actions: Dict[str, str] = {}
+        self.fk_update_actions: Dict[str, str] = {}
+        # generated columns [(column, expression SQL text, stored)], in
+        # definition order (an evaluation order)
+        self.generated: list = []
         self._bounds_cache: dict = {}
         self._nulls_cache: dict = {}
         # key columns -> (block uids covered, sorted key values): the

@@ -1,12 +1,17 @@
-"""A table's DDL as text.
+"""A table's DDL as text, and its logical export as SQL.
 
-Counterpart of tidb_tpu/tools/dump.py, cut to ``create_table_sql``, which
-SHOW CREATE TABLE prints. The port's tables carry no CHECK, FOREIGN KEY,
-generated column, partitioning or TTL, so the clauses the JAX package
-renders for those never arise; the logical export itself is not ported.
+Counterpart of tidb_tpu/tools/dump.py: ``create_table_sql``, which SHOW
+CREATE TABLE prints (generated columns, CHECK and FOREIGN KEY clauses
+with their ON DELETE actions, as the JAX package renders them), and
+``dump_table_sql``, the schema and INSERT batches of one table, read at
+one pinned version. The port's tables carry no partitioning or TTL, so
+those clauses never arise; the CSV format and the command line are not
+ported.
 """
 
 from __future__ import annotations
+
+from typing import List
 
 from tidb_tpu_torch.dtypes import Kind, days_to_date, micros_to_datetime, micros_to_time
 
@@ -59,10 +64,57 @@ def create_table_sql(t) -> str:
                 decl += f" default {dflt}"
         if n == t.autoinc_col:
             decl += " auto_increment"
+        for gc, gtxt, gstored in t.generated:
+            if gc == n:
+                decl += f" generated always as ({gtxt}) " + ("stored" if gstored else "virtual")
         parts.append(f"`{n}` {decl}")
     if t.schema.primary_key:
         parts.append("primary key (" + ", ".join(t.schema.primary_key) + ")")
     for iname, cols in sorted(t.indexes.items()):
         kw = "unique index" if iname in t.unique_indexes else "index"
         parts.append(f"{kw} {iname} (" + ", ".join(cols) + ")")
+    for nm, txt in t.checks:
+        parts.append(f"constraint {nm} check ({txt})")
+    for nm, col, rdb, rtbl, rcol in t.fks:
+        # the JAX package renders the ON DELETE action only
+        suffix = {"cascade": " on delete cascade",
+                  "set_null": " on delete set null"}.get(t.fk_actions.get(nm.lower()), "")
+        parts.append(f"constraint {nm} foreign key ({col}) references {rdb}.{rtbl} ({rcol}){suffix}")
     return f"CREATE TABLE `{t.name}` (\n  " + ",\n  ".join(parts) + "\n);"
+
+
+def _decoded_rows(t):
+    cols = t.schema.names
+    types = [ty for _, ty in t.schema.columns]
+    version = t.version
+    t.pin(version)  # one snapshot
+    try:
+        for b in t.blocks(version):
+            decoded = [b.columns[c].decode() for c in cols]
+            for i in range(b.nrows):
+                yield [d[i] for d in decoded], types
+    finally:
+        t.unpin(version)
+
+
+def dump_table_sql(t, out_path: str, batch_rows: int = 500) -> int:
+    """Write a table's schema and INSERT batches; returns the rows
+    written. Generated columns are left out of the INSERTs: the restore
+    computes them, and an INSERT that writes one is refused."""
+    n = 0
+    gen = {c for c, *_ in t.generated}
+    names = t.schema.names
+    keep = [i for i, c in enumerate(names) if c not in gen]
+    collist = " (" + ", ".join(f"`{names[i]}`" for i in keep) + ")" if gen else ""
+    with open(out_path, "w", encoding="utf-8") as f:
+        f.write(create_table_sql(t) + "\n")
+        batch: List[str] = []
+        for row, types in _decoded_rows(t):
+            batch.append("(" + ", ".join(_sql_literal(row[i], types[i]) for i in keep) + ")")
+            n += 1
+            if len(batch) >= batch_rows:
+                f.write(f"INSERT INTO `{t.name}`{collist} VALUES\n" + ",\n".join(batch) + ";\n")
+                batch = []
+        if batch:
+            f.write(f"INSERT INTO `{t.name}`{collist} VALUES\n" + ",\n".join(batch) + ";\n")
+    return n

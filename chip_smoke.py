@@ -11,6 +11,7 @@
     python3 chip_smoke.py --operator-only  # phases 1-3 and the operator phase only
     python3 chip_smoke.py --indexes-only   # phases 1-3 and the index phase only
     python3 chip_smoke.py --constraints-only  # phases 1-3 and the constraint phase only
+    python3 chip_smoke.py --partitions-only  # phases 1-3 and the partition phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -194,6 +195,34 @@
    refused. Each step prints its seconds, its statements' seconds,
    host->device bytes and launches; the phase its seconds against its
    120 s limit.
+   Then the partition phase (database tpch_p, dropped at its end), the
+   deployment of TiDB's partitioning guide: P1, lineitem and orders
+   RANGE-partitioned by year (p1992 ... p1998, no MAXVALUE), customer
+   HASH-partitioned on its key into 16, supplier LIST-partitioned by
+   region and the other four tables as they are, loaded from the tpch
+   blocks through each table's split_by_partition, every block proved
+   inside its partition, information_schema.partitions' counts against
+   numpy's per year, bucket and region, and SHOW CREATE TABLE's clauses;
+   P2, TPC-H Q6, Q14, Q7, Q3, Q4, Q5, Q10 and Q8 with Q1 and Q12 as
+   controls, a HASH point query and a LIST range, each with the
+   partition list the JAX package's pruning gives (PARTITION_LISTS),
+   cold once and warm twice over tpch_p, then cold once and warm once
+   over tpch, every run against its numpy oracle, with each query's cold host->device
+   bytes and warm ms side by side and the scan cache's bytes per pruned
+   set; P3, RF1's 15,000 orders and their line items routed by INSERT
+   ... SELECT and RF2's DELETEs, the counts, Q1 and Q6 against numpy
+   after each; P4, ADD PARTITION p1999 (a 1999 row lands there, a 2001
+   row is refused with the JAX text), TRUNCATE of lineitem's p1992 and
+   DROP of orders' p1992 (a tidb_snapshot reader pinned before it still
+   counts the old rows, pruned with the old defs), EXCHANGE of
+   lineitem's p1998 with an empty archive and back WITH VALIDATION, Q1
+   and the counts after each; P5, 1,000 NEXTVALs in one INSERT ...
+   VALUES, a temporary table of Q18's inner GROUP BY under Q18 (against
+   its oracle) that a second session cannot see, GET_LOCK held against
+   the second session, and a SLEEP(5) there cut by KILL within 0.5 s.
+   Each step prints its seconds, its statements' seconds, host->device
+   bytes, launches and its reads' partition lists; the phase its
+   seconds against its 100 s.
 7. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs phases 5 and 6 gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
@@ -221,7 +250,8 @@
    bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
    Phases 5, 6, the builtins, statements, server, refresh, operator,
-   index and constraint phases and 8 each show that every kernel launched
+   index, constraint and partition phases and 8 each show that every
+   kernel launched
    there: launch counts
    are zeroed just before a phase's runs and read just after them.
 
@@ -230,8 +260,13 @@ shaped as the main path's (TPC-H Q1's slot_sums lanes at SF10, the
 l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
 --spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only,
---statements-only, --operator-only, --indexes-only and --constraints-only
-generate and ANALYZE the SF10 tables and run that one phase. None of them prints the last line.
+--statements-only, --operator-only, --indexes-only, --constraints-only and
+--partitions-only generate and ANALYZE the SF10 tables and run that one
+phase. None of them prints the last line.
+
+Before the kernels line the full run prints one `phases:` line: every
+phase's seconds (datagen within its phase), the script's total from its
+start, and whether the partition phase kept to its 100 s.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -530,14 +565,15 @@ def present_date(days: int) -> str:
     return str(np.datetime64(int(days), "D"))
 
 
-def check_q3(res, cat):
+def check_q3(res, cat, oracle=None):
     """Rows equal numpy_q3 in ORDER BY order: (revenue, o_orderdate)
     exactly in sequence, whole rows as a multiset within each run of
     equal (revenue, o_orderdate), and rows tying the last one drawn from
-    every group that ties it."""
+    every group that ties it. `oracle`: numpy_q3's answer, computed
+    already."""
     from tidb_tpu_torch.bench.oracles import numpy_q3
 
-    want, tied = numpy_q3(cat)
+    want, tied = oracle if oracle is not None else numpy_q3(cat)
 
     def shown(r):
         return (r[0], np.int64(r[1]) / 10**4, present_date(r[2]), r[3])
@@ -554,12 +590,13 @@ def check_q3(res, cat):
             assert g in pool, (g, pool)
 
 
-def check_q5(res, cat):
+def check_q5(res, cat, oracle=None):
     """Rows equal numpy_q5: (n_name, revenue) per nation with revenue,
-    in ORDER BY revenue desc."""
+    in ORDER BY revenue desc. `oracle`: numpy_q5's answer, computed
+    already."""
     from tidb_tpu_torch.bench.oracles import numpy_q5
 
-    rev = numpy_q5(cat)
+    rev = oracle if oracle is not None else numpy_q5(cat)
     (nb,) = cat.table("tpch", "nation").blocks()
     names = nb.columns["n_name"].dictionary[nb.columns["n_name"].data]
     by_key = dict(zip(nb.columns["n_nationkey"].data.tolist(), names))
@@ -880,6 +917,7 @@ def sf10_phases(args, seen, report) -> dict:
     from tidb_tpu_torch.storage import Catalog
 
     # --- 4. data ---
+    phase_s = report.setdefault("phase_s", {})
     t0 = time.perf_counter()
     cat = Catalog()
     load_tpch(cat, sf=SF, seed=1, tables=TABLES)
@@ -929,6 +967,7 @@ def sf10_phases(args, seen, report) -> dict:
 
     launches = {"tpch": run_phase(queries, report, lambda n: cat.table(
         "tpch", BASE_TABLE.get(n, "lineitem")), before=analyze_first)}
+    phase_s["tpch"] = time.perf_counter() - t0  # datagen and oracles included
 
     # --- 6. main path: window and set-operation reports, TPC-DS Q95 ---
     t0 = time.perf_counter()
@@ -946,34 +985,45 @@ def sf10_phases(args, seen, report) -> dict:
         return cat.table("tpch", REPORT_BASE_TABLE[name])
 
     launches["reports_q95"] = run_phase(slice6, report, base6)
+    phase_s["reports_q95"] = time.perf_counter() - t0  # TPC-DS datagen included
     A.slot_sums, A.prefix_sum = K.slot_sums, K.prefix_sum
     streamed = [n for n, _s, _c, _q in queries + slice6 if report[n]["stream"]]
     assert not streamed, f"SF10/TPC-DS statements streamed: {streamed}"
 
+    def timed(name, fn, *a):
+        t1 = time.perf_counter()
+        launches[name] = fn(*a)
+        phase_s[name] = time.perf_counter() - t1
+
     # --- the builtins phase: B1-B9 over the same SF10 tables ---
-    launches["builtins"] = builtins_phase(cat, sess, report)
+    timed("builtins", builtins_phase, cat, sess, report)
 
     # --- the statements phase: X1-X10 over the same SF10 tables ---
-    launches["statements"] = statements_phase(cat, sess, report)
+    timed("statements", statements_phase, cat, sess, report)
 
     # --- the MySQL server over the same SF10 tables ---
-    launches["server"] = server_phase(
-        cat, blk, sess, {n: (sql, c) for n, sql, c, _q in queries}, report)
+    timed("server", server_phase, cat, blk, sess,
+          {n: (sql, c) for n, sql, c, _q in queries}, report)
 
     # --- the refresh phase: writes over the same SF10 tables ---
-    launches["refresh"] = refresh_phase(cat, sess, report)
+    timed("refresh", refresh_phase, cat, sess, report)
 
     # --- the operator phase: information_schema, SHOW, users, bindings,
     # KILL and stale reads over the same SF10 tables ---
-    launches["operator"] = operator_phase(cat, sess, report)
+    timed("operator", operator_phase, cat, sess, report)
 
     # --- the index phase: access paths over indexes and the writes that
     # keep them, over the same SF10 tables ---
-    launches["indexes"] = index_phase(cat, sess, report)
+    timed("indexes", index_phase, cat, sess, report)
 
     # --- the constraint phase: TPC-H's keys, FOREIGN KEYs and CHECKs,
     # views and a generated column over the same SF10 tables ---
-    launches["constraints"] = constraint_phase(cat, sess, report)
+    timed("constraints", constraint_phase, cat, sess, report)
+
+    # --- the partition phase: tpch_p partitioned as TiDB's guide deploys
+    # it, pruned reads, routed writes, partition DDL, sequences and
+    # temporary tables over the same SF10 tables ---
+    timed("partitions", partition_phase, cat, sess, report)
 
     if args.profile:
         for name, sql, _check, qs in queries + slice6:
@@ -3695,6 +3745,725 @@ def constraints_only(report) -> dict:
     return launches
 
 
+#: the partition phase's time limit (seconds), oracles included
+PARTITION_LIMIT_S = 100.0
+#: the database the partition phase declares its tables in
+PDB = "tpch_p"
+#: lineitem and orders: one RANGE partition per year, p1992 ... p1998,
+#: with no MAXVALUE (TiDB's "Partitioning" guide: RANGE by date)
+PARTITION_YEARS = list(range(1992, 1999))
+#: customer: HASH (c_custkey) over this many partitions
+CUSTOMER_BUCKETS = 16
+#: supplier: LIST (s_nationkey), one partition per region (r_regionkey
+#: order) listing its five nations
+REGION_PARTS = ["p_africa", "p_america", "p_asia", "p_europe", "p_middle_east"]
+#: warm runs of each P2 read over tpch_p, and of the same read over the
+#: unpartitioned tpch tables (the TPC-H phase timed those already)
+PARTITION_WARM_RUNS = 2
+PARTITION_FLAT_WARM_RUNS = 1
+#: threads of P2's numpy oracles (beside P1's load)
+PARTITION_ORACLE_THREADS = 6
+#: P2's reads beyond TPC-H: a HASH point get and a LIST range
+HASH_POINT_KEY = 42
+HASH_POINT_SQL = f"select c_custkey, c_name, c_acctbal from customer where c_custkey = {HASH_POINT_KEY}"
+LIST_RANGE_SQL = ("select s_nationkey, count(*), sum(s_acctbal) from supplier "
+                  "where s_nationkey >= 6 and s_nationkey <= 7 group by s_nationkey "
+                  "order by s_nationkey")
+#: each P2 read's EXPLAIN partition lists (one per pruned scan, sorted),
+#: as the JAX package's pruning gives them (tests/test_torch_partition.py)
+PARTITION_LISTS = {
+    "q6": ["[p1994]"], "q14": ["[p1995]"], "q7": ["[p1995,p1996]"],
+    "q3": ["[p1992,p1993,p1994,p1995]", "[p1995,p1996,p1997,p1998]"],
+    "q4": ["[p1993]"], "q5": ["[p1994]"], "q10": ["[p1993]"], "q8": ["[p1995,p1996]"],
+    "q1": [], "q12": [], "hash_point": ["[p10]"], "list_range": ["[p_europe]"],
+}
+
+
+def _col_sql(typ) -> str:
+    """A column's type in the partition phase's DDL, by kind name (the
+    JAX package's schemas render the same)."""
+    return {"INT": "bigint", "DATE": "date", "FLOAT": "double",
+            "STRING": "varchar(199)"}.get(typ.kind.name, f"decimal(15,{typ.scale})")
+
+
+def _year_bounds(years=PARTITION_YEARS) -> np.ndarray:
+    """The RANGE partitions' upper bounds in epoch days."""
+    return np.array([(np.datetime64(f"{y + 1}-01-01") - np.datetime64("1970-01-01")).astype(int)
+                     for y in years], dtype=np.int64)
+
+
+def _region_nations(cat):
+    """r_regionkey -> its nation keys, from the tpch nation table."""
+    nation = cat.table("tpch", "nation")
+    nk = np.concatenate([b.columns["n_nationkey"].data for b in nation.blocks()])
+    rk = np.concatenate([b.columns["n_regionkey"].data for b in nation.blocks()])
+    return {r: sorted(int(n) for n in nk[rk == r]) for r in range(len(REGION_PARTS))}
+
+
+def partition_ddl(cat) -> list:
+    """The partition phase's DDL over `cat`'s tpch tables: database
+    tpch_p with lineitem and orders RANGE-partitioned by year, customer
+    HASH-partitioned by key, supplier LIST-partitioned by region and the
+    other four tables unpartitioned, with the tpch tables' columns and
+    primary keys."""
+    years = PARTITION_YEARS
+
+    def by_year(col):
+        return (f" partition by range ({col}) ("
+                + ", ".join(f"partition p{y} values less than ('{y + 1}-01-01')" for y in years)
+                + ")")
+
+    regions = _region_nations(cat)
+    clause = {
+        "lineitem": by_year("l_shipdate"), "orders": by_year("o_orderdate"),
+        "customer": f" partition by hash (c_custkey) partitions {CUSTOMER_BUCKETS}",
+        "supplier": " partition by list (s_nationkey) (" + ", ".join(
+            f"partition {p} values in (" + ", ".join(map(str, regions[r])) + ")"
+            for r, p in enumerate(REGION_PARTS)) + ")",
+    }
+    out = [f"create database {PDB}"]
+    for name in TABLES:
+        t = cat.table("tpch", name)
+        parts = [f"{c} {_col_sql(ty)}" for c, ty in t.schema.columns]
+        if t.schema.primary_key:
+            parts.append("primary key (" + ", ".join(t.schema.primary_key) + ")")
+        out.append(f"create table {PDB}.{name} (" + ", ".join(parts) + ")" + clause.get(name, ""))
+    return out
+
+
+def partition_load(cat) -> None:
+    """tpch_p's rows: the tpch tables' blocks, split through each
+    partitioned table's own split_by_partition (the others' blocks
+    shared), installed through the storage layer as C1 installs its
+    copies: no statement over 60M rows."""
+    for name in TABLES:
+        src, dst = cat.table("tpch", name), cat.table(PDB, name)
+
+        def split(b, dst=dst):
+            # a block of its own over the same arrays: a dictionary merge
+            # rewrites the blocks of the table it lands in
+            own = type(b)(dict(b.columns), b.nrows)
+            return dst.split_by_partition(own) if dst.partition is not None else [own]
+
+        # the many small blocks the earlier phases' writes left split side
+        # by side (a long block's columns are gathered on threads already)
+        with ThreadPoolExecutor(4) as ex:
+            blocks = [nb for part in ex.map(split, src.blocks()) for nb in part]
+        dst.dictionaries.update(src.dictionaries)
+        dst.replace_blocks(blocks)
+
+
+def partition_reads(sf: float) -> list:
+    """P2's reads as (name, SQL): TPC-H Q6, Q14, Q7, Q3, Q4, Q5, Q10 and
+    Q8, whose date ranges prune; Q1 and Q12, which prune nothing; a HASH
+    point query and a LIST range query."""
+    from tidb_tpu_torch.bench import oracles as O
+
+    out = []
+    for name in ("q6", "q14", "q7", "q3", "q4", "q5", "q10", "q8", "q1", "q12"):
+        sql = {"q1": O.Q1_SQL, "q3": O.Q3_SQL, "q5": O.Q5_SQL, "q6": O.Q6_SQL}.get(name)
+        if sql is None:
+            sql = O.TPCH_QUERIES[name].sql.format(**O.spec_params(name, sf))
+        out.append((name, sql))
+    return out + [("hash_point", HASH_POINT_SQL), ("list_range", LIST_RANGE_SQL)]
+
+
+def _explain_lists(sess, sql) -> list:
+    """The `partitions=[...]` labels of a read's EXPLAIN, sorted."""
+    return sorted(r[0].split("partitions=")[1].split(" ")[0]
+                  for r in sess.execute("explain " + sql).rows if "partitions=" in r[0])
+
+
+def _want_counts(arrays, regions) -> dict:
+    """Rows per partition id, by numpy: per year of l_shipdate and
+    o_orderdate, per c_custkey bucket and per region of s_nationkey."""
+    n_of_region = {n: r for r, ns in regions.items() for n in ns}
+    out = {}
+    bounds = _year_bounds()
+    for name, col in (("lineitem", "l_shipdate"), ("orders", "o_orderdate")):
+        pid = np.searchsorted(bounds, arrays[name][col], side="right")
+        out[name] = np.bincount(pid, minlength=len(bounds)).tolist()
+    keys = arrays["customer"]["c_custkey"]
+    out["customer"] = np.bincount(keys % CUSTOMER_BUCKETS, minlength=CUSTOMER_BUCKETS).tolist()
+    reg = np.array([n_of_region[int(n)] for n in range(max(n_of_region) + 1)])
+    out["supplier"] = np.bincount(reg[arrays["supplier"]["s_nationkey"]],
+                                  minlength=len(REGION_PARTS)).tolist()
+    return out
+
+
+def _infoschema_counts(sess) -> dict:
+    """tpch_p's rows per partition, by table, from information_schema."""
+    rows = sess.execute("select table_name, partition_ordinal_position, table_rows from "
+                        f"information_schema.partitions where table_schema = '{PDB}' "
+                        "and partition_name is not null "
+                        "order by table_name, partition_ordinal_position").rows
+    out: dict = {}
+    for tn, _pos, n in rows:
+        out.setdefault(tn, []).append(int(n))
+    return out
+
+
+PARTITION_COUNT_COLUMNS = {"lineitem": ["l_shipdate"], "orders": ["o_orderdate"],
+                           "customer": ["c_custkey"], "supplier": ["s_nationkey"]}
+
+
+def partition_prove(cat, sess, arrays=None) -> dict:
+    """P1's proof of the routing: every block of tpch_p's partitioned
+    tables holds only rows inside its partition (RANGE bounds by numpy,
+    the hash bucket, the region's nations); information_schema's
+    table_rows equal numpy's counts per year, bucket and region (of
+    `arrays`, else of the tpch tables' rows); SHOW CREATE TABLE renders
+    each clause. Returns the counts."""
+    bounds = _year_bounds()
+    lower = np.concatenate([[np.iinfo(np.int64).min], bounds[:-1]])
+    regions = _region_nations(cat)
+    for name, col in (("lineitem", "l_shipdate"), ("orders", "o_orderdate")):
+        for b in cat.table(PDB, name).blocks():
+            d = b.columns[col].data
+            assert b.part_id is not None and (d >= lower[b.part_id]).all() and (
+                d < bounds[b.part_id]).all(), (name, b.part_id)
+    for b in cat.table(PDB, "customer").blocks():
+        assert (b.columns["c_custkey"].data % CUSTOMER_BUCKETS == b.part_id).all()
+    for b in cat.table(PDB, "supplier").blocks():
+        assert np.isin(b.columns["s_nationkey"].data, regions[b.part_id]).all()
+    if arrays is None:
+        arrays = capture_arrays(cat, PARTITION_COUNT_COLUMNS)
+    want = _want_counts(arrays, regions)
+    got = _infoschema_counts(sess)
+    assert got == want, (got, want)
+    ddl = {n: sess.execute(f"show create table {PDB}.{n}").rows[0][1]
+           for n in ("lineitem", "orders", "customer", "supplier")}
+    assert ("partition by range (l_shipdate) (partition p1992 values less than "
+            "(date '1993-01-01'), partition p1993") in ddl["lineitem"], ddl["lineitem"]
+    assert "partition p1998 values less than (date '1999-01-01'))" in ddl["orders"], ddl["orders"]
+    assert ddl["customer"].endswith(f"partition by hash (c_custkey) partitions "
+                                    f"{CUSTOMER_BUCKETS}"), ddl["customer"]
+    assert (f"partition by list (s_nationkey) (partition p_africa values in "
+            f"({', '.join(map(str, regions[0]))})") in ddl["supplier"], ddl["supplier"]
+    return got
+
+
+def partition_phase(cat, sess, report) -> dict:
+    """The partition phase over the SF10 tables: database tpch_p as TiDB's
+    partitioning guide deploys TPC-H (lineitem and orders RANGE by year,
+    customer HASH by key, supplier LIST by region). P1 declares and loads
+    it from the tpch tables' blocks and proves the routing; P2 runs eight
+    pruning TPC-H queries, two controls and a HASH and a LIST read over
+    it, cold once and warm twice, each against its numpy oracle and
+    beside the same query over the unpartitioned tables (cold once, warm
+    once); P3 routes RF1's
+    rows and RF2's deletes; P4 runs ADD, TRUNCATE, DROP and EXCHANGE
+    PARTITION and a stale read pinned before the DROP; P5 runs a
+    sequence, a temporary table under Q18, an advisory lock and a SLEEP
+    cut by KILL. Each step prints its seconds, its statements' seconds,
+    host->device bytes, kernel launches and every read's partition list.
+    The database is dropped at the end. Returns the phase's launches."""
+    import torch
+
+    from tidb_tpu_torch.bench import oracles as O
+    from tidb_tpu_torch.chunk import TRANSFERS, HostBlock, column_from_values
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import TableSchema, scan
+
+    out = report["partitions"] = {}
+    t_phase = time.perf_counter()
+    log(f"partitions: card {card_line()}")
+    K.reset_launches()
+    sf = SF
+
+    def step(name, fn):
+        """Run fn, recording under `name` its seconds, its statements'
+        seconds alone (``stmt_s``), host->device bytes, launches, and
+        what fn returns (the reads' partition lists among it)."""
+        stmt = {"s": 0.0, "depth": 0}
+
+        def timed(f):
+            def run(*a, **kw):
+                stmt["depth"] += 1
+                t2 = time.perf_counter()
+                try:
+                    return f(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    stmt["depth"] -= 1
+                    if not stmt["depth"]:
+                        stmt["s"] += time.perf_counter() - t2
+            return run
+
+        torch.cuda.synchronize()
+        h0, t1, l0 = TRANSFERS["h2d_bytes"], time.perf_counter(), dict(K.LAUNCHES)
+        sess.execute = timed(sess.execute)
+        try:
+            extra = fn() or {}
+        finally:
+            del sess.execute
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t1, "stmt_s": stmt["s"],
+                     "h2d_bytes": TRANSFERS["h2d_bytes"] - h0,
+                     "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES}, **extra}
+        log(f"partitions {name}: " + json.dumps(out[name]))
+
+    reads = partition_reads(sf)
+    text = " ".join(sql for _n, sql in reads)
+    ora_cols = {n: [c for c in cat.table("tpch", n).schema.names if c in text] for n in TABLES}
+    ora_cols["lineitem"] = sorted(set(ora_cols["lineitem"]) | {"l_tax", "l_shipdate"})
+    # tpch_p holds the tpch tables' rows, which this phase never writes:
+    # P2's oracles run over them on threads from the start, beside P1
+    state: dict = {"arr": capture_arrays(cat, ora_cols)}
+    arr = state["arr"]
+    ocat = state["ocat"] = oracle_catalog(cat, arr)
+    pool = ThreadPoolExecutor(PARTITION_ORACLE_THREADS)
+    state["oracles"] = {
+        "q1": pool.submit(O.numpy_q1, arr["lineitem"]),
+        "q6": pool.submit(O.numpy_q6, arr["lineitem"]),
+        "q3": pool.submit(O.numpy_q3, ocat), "q5": pool.submit(O.numpy_q5, ocat),
+        **{n: pool.submit(O.TPCH_QUERIES[n].oracle, ocat, **O.spec_params(n, sf))
+           for n, _s in reads if n in O.TPCH_QUERIES}}
+
+    # --- P1: declare, load, prove ---
+    def p1():
+        for sql in partition_ddl(cat):
+            sess.execute(sql)
+        t0 = time.perf_counter()
+        partition_load(cat)
+        load_s = time.perf_counter() - t0
+        # statistics, as bench.py takes them before measuring (Q5's join
+        # order reads them)
+        t0 = time.perf_counter()
+        for name in TABLES:
+            sess.execute(f"analyze table {PDB}.{name}")
+        analyze_s = time.perf_counter() - t0
+        counts = state["counts"] = partition_prove(cat, sess, arr)
+        return {"load_s": load_s, "analyze_s": analyze_s, "rows_per_partition": counts,
+                "blocks": {n: len(cat.table(PDB, n).blocks()) for n in TABLES}}
+
+    step("p1_declare", p1)
+
+    def checker(name):
+        arr, ocat, ora = state["arr"], state["ocat"], state["oracles"]
+        t_li = cat.table(PDB, "lineitem")
+        if name == "q1":
+            return lambda r: check_q1(r, ora["q1"].result(), t_li)
+        if name == "q6":
+            return lambda r: _check_q6_value(r, ora["q6"].result())
+        if name == "q3":
+            return lambda r: check_q3(r, ocat, ora["q3"].result())
+        if name == "q5":
+            return lambda r: check_q5(r, ocat, ora["q5"].result())
+        if name == "hash_point":
+            c = arr["customer"]
+            i = int(np.flatnonzero(c["c_custkey"] == HASH_POINT_KEY)[0])
+            nm = cat.table("tpch", "customer").dictionaries["c_name"][c["c_name"][i]]
+            want = [(HASH_POINT_KEY, nm, int(c["c_acctbal"][i]) / 100)]
+            return lambda r: _assert_rows(r.rows, want)
+        if name == "list_range":
+            s_ = arr["supplier"]
+            want = [(n, int((s_["s_nationkey"] == n).sum()),
+                     int(s_["s_acctbal"][s_["s_nationkey"] == n].sum()) / 100) for n in (6, 7)]
+            return lambda r: _assert_rows(r.rows, want)
+        q = O.TPCH_QUERIES[name]
+        return lambda r: O.check_rows(r.rows, ora[name].result(), q.order, q.limit)
+
+    # --- P2: pruned reads beside the unpartitioned tables ---
+    def p2():
+        oracles_first_s = time.perf_counter()
+        for f in state["oracles"].values():
+            f.result()
+        oracle_s = time.perf_counter() - oracles_first_s
+        per, lists = {}, {}
+        for name, sql in reads:
+            check = checker(name)
+            row = {}
+            for db in (PDB, "tpch"):
+                sess.execute(f"use {db}")
+                if db == PDB:
+                    lists[name] = _explain_lists(sess, sql)
+                    assert lists[name] == PARTITION_LISTS[name], (name, lists[name])
+                h0 = TRANSFERS["h2d_bytes"]
+                t0 = time.perf_counter()
+                res = sess.execute(sql)
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t0
+                cold_h2d = TRANSFERS["h2d_bytes"] - h0
+                check(res)
+                warm = []
+                for _ in range(PARTITION_WARM_RUNS if db == PDB else PARTITION_FLAT_WARM_RUNS):
+                    t0 = time.perf_counter()
+                    res = sess.execute(sql)
+                    torch.cuda.synchronize()
+                    warm.append((time.perf_counter() - t0) * 1e3)
+                    check(res)
+                row["p" if db == PDB else "flat"] = {
+                    "cold_s": cold, "cold_h2d_bytes": cold_h2d, "warm_ms": warm}
+            per[name] = row
+            log(f"partitions p2 {name}: partitions {lists[name]} " + json.dumps(row))
+        sess.execute("use tpch")
+        sets = scan.cached_partition_sets()
+        cached = {n: {str(k): v for k, v in sets.get(cat.table(PDB, n).uid, {}).items()}
+                  for n in ("lineitem", "orders", "customer", "supplier")}
+        return {"reads": per, "partitions": lists, "oracle_wait_s": oracle_s,
+                "cached_bytes_by_partition_set": cached}
+
+    step("p2_pruned_reads", p2)
+    pool.shutdown(wait=True)
+
+    # --- P3: routed writes (RF1 by INSERT ... SELECT, RF2's DELETEs) ---
+    # The oracles follow the writes by their deltas: Q1's sums and counts
+    # and Q6's revenue add over rows, and so do the rows per year. The
+    # rows live are the captured ones under a mask plus the rows written
+    # since (`extra`), so no step scans all 60M rows again.
+    q16 = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+           "l_returnflag", "l_linestatus", "l_shipdate"]
+    arr = state["arr"]
+    rows = {"lineitem": {c: arr["lineitem"][c] for c in q16},
+            "orders": {c: arr["orders"][c] for c in ("o_orderkey", "o_orderdate")}}
+    live = {n: np.ones(len(rows[n]["l_orderkey" if n == "lineitem" else "o_orderkey"]), bool)
+            for n in rows}
+    extra = {n: {c: v[:0] for c, v in rows[n].items()} for n in rows}
+    date_col = {"lineitem": "l_shipdate", "orders": "o_orderdate"}
+    all_years = list(range(PARTITION_YEARS[0], PARTITION_YEARS[-1] + 2))  # and 1999
+    bounds_all = _year_bounds(all_years)
+
+    def year_hist(d):
+        return np.bincount(np.searchsorted(bounds_all, d, side="right"),
+                           minlength=len(all_years))[:len(all_years)]
+
+    ref = {"q1": state["oracles"]["q1"].result(), "q6": state["oracles"]["q6"].result(),
+           # P1's counts per year, and none in 1999 yet
+           "hist": {n: np.array(state["counts"][n] + [0], dtype=np.int64) for n in rows},
+           "fixed": state["counts"]}
+
+    def apply(name, part, sign):
+        """Add (+1) or remove (-1) the rows `part` of `name` in the oracles."""
+        ref["hist"][name] = ref["hist"][name] + sign * year_hist(part[date_col[name]])
+        if name == "lineitem" and len(part["l_orderkey"]):
+            d = O.numpy_q1(part)
+            q1 = ref["q1"] = {k: ref["q1"][k] + sign * d[k] for k in (
+                "sum_qty", "sum_base", "sum_disc", "sum_charge", "sum_disc_rate", "cnt")}
+            den = np.maximum(q1["cnt"], 1)
+            q1.update(avg_qty=q1["sum_qty"] / den, avg_base=q1["sum_base"] / den,
+                      avg_disc=q1["sum_disc_rate"] / den)
+            ref["q6"] += sign * O.numpy_q6(part)
+
+    def add(name, part):
+        extra[name] = {c: np.concatenate([extra[name][c], np.asarray(part[c]).astype(
+            rows[name][c].dtype)]) for c in rows[name]}
+        apply(name, {c: extra[name][c][-len(part[c]):] for c in rows[name]}, 1)
+
+    def remove(name, pick):
+        """Remove the live rows `pick(arrays)` selects; returns how many
+        and the rows themselves."""
+        gone = []
+        for arrays, is_extra in ((rows[name], False), (extra[name], True)):
+            m = pick(arrays)
+            if not is_extra:
+                m &= live[name]
+            gone.append({c: v[m] for c, v in arrays.items()})
+            apply(name, gone[-1], -1)
+            if is_extra:
+                extra[name] = {c: v[~m] for c, v in arrays.items()}
+            else:
+                live[name] &= ~m
+        out = {c: np.concatenate([g[c] for g in gone]) for c in rows[name]}
+        return len(next(iter(out.values()))), out
+
+    def in_year(name, y, first=False):
+        lo, hi = (_year_bounds([y - 1])[0] if not first else np.iinfo(np.int64).min,
+                  _year_bounds([y])[0])
+        return lambda a: (a[date_col[name]] >= lo) & (a[date_col[name]] < hi)
+
+    def counts_now(years=None):
+        """information_schema's counts against the oracle's, under the
+        partitions each table has (`years`: table -> its years)."""
+        years = years or {}
+        want = dict(ref["fixed"])
+        for n in ("lineitem", "orders"):
+            ys = years.get(n, PARTITION_YEARS)
+            want[n] = [int(ref["hist"][n][all_years.index(y)]) for y in ys]
+        got = _infoschema_counts(sess)
+        assert got == want, (got, want)
+        return got
+
+    def q1_q6(step_lists, when):
+        """Q1 and Q6 over tpch_p against the oracles, their partition
+        lists (Q1 prunes nothing, Q6 keeps p1994) noted under `when`."""
+        t_li = cat.table(PDB, "lineitem")
+        sess.execute(f"use {PDB}")
+        try:
+            step_lists[when] = {n: _explain_lists(sess, q) for n, q in (("q1", O.Q1_SQL),
+                                                                         ("q6", O.Q6_SQL))}
+            assert step_lists[when] == {"q1": [], "q6": ["[p1994]"]}, step_lists[when]
+            check_q1(sess.execute(O.Q1_SQL), ref["q1"], t_li)
+            _check_q6_value(sess.execute(O.Q6_SQL), ref["q6"])
+        finally:
+            sess.execute("use tpch")
+
+    def staged(name, cols, like):
+        src = cat.table(PDB, like)
+        t = cat.create_table(PDB, name, TableSchema(list(src.schema.columns)))
+        n = len(next(iter(cols.values())))
+        vals = {}
+        for c, typ in src.schema.columns:
+            v = cols.get(c)
+            if v is None:
+                vals[c] = [None] * n
+            elif typ.kind.name == "DECIMAL":
+                vals[c] = (v / 10 ** typ.scale).tolist()
+            else:
+                vals[c] = v.tolist()
+        t.append_block(HostBlock.from_columns(
+            {c: column_from_values(vals[c], typ) for c, typ in src.schema.columns}))
+
+    def p3():
+        lists = {}
+        rng = np.random.default_rng(23)
+        rf1 = rf1_data(cat, rng, sf, RF_ORDERS, 0, db=PDB)
+        for name, like in (("rf1_orders", "orders"), ("rf1_lineitem", "lineitem")):
+            staged(name, rf1[like], like)
+        t0 = time.perf_counter()
+        res_o = sess.execute(f"insert into {PDB}.orders select * from {PDB}.rf1_orders")
+        res_l = sess.execute(f"insert into {PDB}.lineitem select * from {PDB}.rf1_lineitem")
+        torch.cuda.synchronize()
+        rf1_s = time.perf_counter() - t0
+        n_l1 = len(rf1["lineitem"]["l_orderkey"])
+        assert res_o.affected == RF_ORDERS and res_l.affected == n_l1
+        for name in ("rf1_orders", "rf1_lineitem"):
+            scan.release(cat.table(PDB, name))
+            sess.execute(f"drop table {PDB}.{name}")
+        li_t = cat.table(PDB, "lineitem")
+        new = {c: rf1["lineitem"][c] for c in q16}
+        for c in ("l_returnflag", "l_linestatus"):
+            new[c] = np.searchsorted(li_t.dictionaries[c], new[c])
+        add("lineitem", new)
+        add("orders", {c: rf1["orders"][c] for c in ("o_orderkey", "o_orderdate")})
+        after_rf1 = counts_now()
+        q1_q6(lists, "after_rf1")
+        # RF2: the RF_ORDERS smallest old orders and their line items
+        keys_o = rows["orders"]["o_orderkey"][live["orders"]]
+        rf2 = np.sort(np.partition(keys_o, RF_ORDERS)[:RF_ORDERS])
+        keys = ", ".join(str(int(k)) for k in rf2)
+        t0 = time.perf_counter()
+        n_l = sess.execute(f"delete from {PDB}.lineitem where l_orderkey in ({keys})").affected
+        n_o = sess.execute(f"delete from {PDB}.orders where o_orderkey in ({keys})").affected
+        torch.cuda.synchronize()
+        rf2_s = time.perf_counter() - t0
+        gone_l = remove("lineitem", lambda a: member(a["l_orderkey"], rf2))[0]
+        gone_o = remove("orders", lambda a: member(a["o_orderkey"], rf2))[0]
+        assert (n_o, n_l) == (gone_o, gone_l) == (RF_ORDERS, gone_l), (n_o, n_l, gone_o, gone_l)
+        after_rf2 = counts_now()
+        q1_q6(lists, "after_rf2")
+        return {"partitions": lists, "rf1_s": rf1_s, "rf1_orders": RF_ORDERS, "rf1_lineitems": n_l1, "rf2_s": rf2_s,
+                "rf2_orders": n_o, "rf2_lineitems": n_l,
+                "rows_after_rf1": after_rf1, "rows_after_rf2": after_rf2}
+
+    step("p3_routed_writes", p3)
+
+    # --- P4: partition DDL ---
+    def p4():
+        lists = {}
+        day = {y: int((np.datetime64(f"{y}-06-01") - np.datetime64("1970-01-01")).astype(int))
+               for y in (1999, 2001)}
+        t0 = time.perf_counter()
+        for tbl in ("lineitem", "orders"):
+            sess.execute(f"alter table {PDB}.{tbl} add partition (partition p1999 "
+                         "values less than ('2000-01-01'))")
+        add_s = time.perf_counter() - t0
+        okey = int(max(rows["orders"]["o_orderkey"].max(), extra["orders"]["o_orderkey"].max())) + 1
+        sess.execute(f"insert into {PDB}.orders (o_orderkey, o_custkey, o_orderstatus, "
+                     f"o_totalprice, o_orderdate) values ({okey}, 1, 'O', 10.00, '1999-06-01')")
+        sess.execute(f"insert into {PDB}.lineitem (l_orderkey, l_partkey, l_suppkey, l_linenumber, "
+                     "l_quantity, l_extendedprice, l_discount, l_tax, l_returnflag, l_linestatus, "
+                     f"l_shipdate) values ({okey}, 1, 1, 1, 1.00, 10.00, 0.05, 0.01, 'N', 'O', "
+                     "'1999-06-01')")
+        li_t = cat.table(PDB, "lineitem")
+        add("orders", {"o_orderkey": [okey], "o_orderdate": [day[1999]]})
+        add("lineitem", {
+            "l_orderkey": [okey], "l_quantity": [100], "l_extendedprice": [1000],
+            "l_discount": [5], "l_tax": [1], "l_shipdate": [day[1999]],
+            "l_returnflag": [int(np.searchsorted(li_t.dictionaries["l_returnflag"], "N"))],
+            "l_linestatus": [int(np.searchsorted(li_t.dictionaries["l_linestatus"], "O"))]})
+        p99 = sess.execute(f"select table_name, table_rows from information_schema.partitions "
+                           f"where table_schema = '{PDB}' and partition_name = 'p1999' "
+                           "order by table_name").rows
+        assert p99 == [("lineitem", 1), ("orders", 1)], p99
+        (o99,) = [b for b in cat.table(PDB, "orders").blocks() if b.part_id == 7]
+        assert o99.nrows == 1 and int(o99.columns["o_orderdate"].data[0]) == day[1999]
+        lists["p1999"] = _explain_lists(
+            sess, f"select count(*) from {PDB}.orders where o_orderdate >= '1999-01-01'")
+        assert lists["p1999"] == ["[p1999]"], lists
+        try:
+            sess.execute(f"insert into {PDB}.orders (o_orderkey, o_custkey, o_orderstatus, "
+                         f"o_totalprice, o_orderdate) values ({okey + 1}, 1, 'O', 1.00, "
+                         "'2001-06-01')")
+            raise AssertionError("a 2001 row was not refused")
+        except ValueError as e:
+            assert str(e) == f"Table has no partition for value {day[2001]}", str(e)
+        # TRUNCATE lineitem's p1992, DROP orders' p1992; a stale reader
+        # pinned just before the DROP keeps the old rows and defs
+        t0 = time.perf_counter()
+        sess.execute(f"alter table {PDB}.lineitem truncate partition p1992")
+        truncate_s = time.perf_counter() - t0
+        remove("lineitem", in_year("lineitem", 1992, first=True))
+        before_drop = time.time()
+        time.sleep(0.01)
+        t0 = time.perf_counter()
+        sess.execute(f"alter table {PDB}.orders drop partition p1992")
+        drop_s = time.perf_counter() - t0
+        old1992 = remove("orders", in_year("orders", 1992, first=True))[0]
+        years = {"lineitem": all_years, "orders": all_years[1:]}
+        counts_now(years)
+        q1_q6(lists, "after_drop")
+        stale = Session(cat, db=PDB)
+        stale.execute(f"set tidb_snapshot = '{before_drop}'")
+        q_old = "select count(*) from orders where o_orderdate < '1993-01-01'"
+        stale_list = _explain_lists(stale, q_old)
+        (n_old,) = stale.execute(q_old).rows[0]
+        assert stale_list == ["[p1992]"] and n_old == old1992, (stale_list, n_old, old1992)
+        stale.execute("set tidb_snapshot = ''")
+        assert stale.execute(q_old).rows == [(0,)]
+        lists["stale_1992"] = stale_list
+        stale.close()
+        # EXCHANGE lineitem's p1998 out to an empty archive, then back
+        src = cat.table(PDB, "lineitem")
+        cat.create_table(PDB, "lineitem_1998", TableSchema(list(src.schema.columns)))
+        t0 = time.perf_counter()
+        sess.execute(f"alter table {PDB}.lineitem exchange partition p1998 "
+                     f"with table {PDB}.lineitem_1998")
+        out_s = time.perf_counter() - t0
+        n98, kept = remove("lineitem", in_year("lineitem", 1998))
+        (got98,) = sess.execute(f"select count(*) from {PDB}.lineitem_1998").rows[0]
+        assert got98 == n98, (got98, n98)
+        counts_now(years)
+        q1_q6(lists, "after_exchange_out")
+        t0 = time.perf_counter()
+        sess.execute(f"alter table {PDB}.lineitem exchange partition p1998 with table "
+                     f"{PDB}.lineitem_1998 with validation")
+        back_s = time.perf_counter() - t0
+        add("lineitem", kept)
+        assert sess.execute(f"select count(*) from {PDB}.lineitem_1998").rows == [(0,)]
+        counts_now(years)
+        q1_q6(lists, "after_exchange_back")
+        scan.release(cat.table(PDB, "lineitem_1998"))
+        sess.execute(f"drop table {PDB}.lineitem_1998")
+        return {"partitions": lists, "add_s": add_s, "truncate_s": truncate_s,
+                "drop_s": drop_s, "exchange_out_s": out_s, "exchange_back_s": back_s,
+                "rows_1998": n98, "stale_rows_1992": n_old}
+
+    step("p4_partition_ddl", p4)
+
+    # --- P5: a sequence, a temporary table, a lock, a killed SLEEP ---
+    def p5():
+        sess.execute(f"create sequence {PDB}.s_ids")
+        sess.execute(f"create table {PDB}.seq_rows (id bigint, v bigint)")
+        t0 = time.perf_counter()
+        res = sess.execute(f"insert into {PDB}.seq_rows values "
+                           + ", ".join(f"(nextval({PDB}.s_ids), {i})" for i in range(1000)))
+        seq_s = time.perf_counter() - t0
+        assert res.affected == 1000
+        assert sess.execute(f"select min(id), max(id), count(distinct id), sum(v) from "
+                            f"{PDB}.seq_rows").rows == [(1, 1000, 1000, 499500)]
+        assert sess.execute(f"select lastval({PDB}.s_ids)").rows == [(1000,)]
+        q18 = O.TPCH_QUERIES["q18"]
+        params = O.spec_params("q18", sf)
+        t0 = time.perf_counter()
+        res = sess.execute("create temporary table big as select l_orderkey, sum(l_quantity) "
+                           "as qty from lineitem group by l_orderkey "
+                           f"having sum(l_quantity) > {params['quantity']}")
+        ctas_s = time.perf_counter() - t0
+        inner = (f"select l_orderkey from lineitem group by l_orderkey having sum(l_quantity) > "
+                 f"{params['quantity']}")
+        sql = q18.sql.format(**params).replace(inner, "select l_orderkey from big")
+        assert sql != q18.sql.format(**params)
+        lists = {"q18_over_temp": _explain_lists(sess, sql)}
+        assert lists["q18_over_temp"] == [], lists  # tpch and the temporary table
+        t0 = time.perf_counter()
+        got = sess.execute(sql)
+        q18_s = time.perf_counter() - t0
+        q18_cols = {"lineitem": ["l_orderkey", "l_quantity"],
+                    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"],
+                    "customer": ["c_custkey"]}
+        ocat18 = oracle_catalog(cat, capture_arrays(cat, q18_cols))
+        O.check_rows(got.rows, q18.oracle(ocat18, **params), q18.order, q18.limit)
+        other = Session(cat, db="tpch")
+        try:
+            other.execute("select count(*) from big")
+            raise AssertionError("a second session saw the temporary table")
+        except ValueError as e:
+            assert "unknown table" in str(e), str(e)
+        assert "big" not in [r[0] for r in sess.execute("show tables").rows]
+        assert sess.execute("select get_lock('p5_lock', 10)").rows == [(1,)]
+        assert other.execute("select get_lock('p5_lock', 0)").rows == [(0,)]
+        assert other.execute("select is_used_lock('p5_lock')").rows == [(sess.conn_id,)]
+        assert sess.execute("select release_lock('p5_lock')").rows == [(1,)]
+        # SLEEP(5) on the second session, KILLed from the first
+        done = {}
+
+        def sleeper():
+            t2 = time.perf_counter()
+            try:
+                other.execute("select sleep(5)")
+                done["error"] = None
+            except Exception as e:  # the KILL's interruption
+                done["error"] = f"{type(e).__name__}: {e}"
+            done["t"] = time.perf_counter()
+            done["slept_s"] = done["t"] - t2
+
+        th = threading.Thread(target=sleeper)
+        th.start()
+        time.sleep(0.5)
+        t_kill = time.perf_counter()
+        sess.execute(f"kill query {other.conn_id}")
+        th.join(timeout=10)
+        assert not th.is_alive() and done["error"] is not None, done
+        stop_s = done["t"] - t_kill
+        assert stop_s <= 0.5, stop_s
+        other.close()
+        sess.execute("drop temporary table big")
+        return {"partitions": lists, "sequence_insert_s": seq_s, "ctas_s": ctas_s, "ctas_rows": res.affected,
+                "q18_over_temp_s": q18_s, "kill_to_stop_s": stop_s,
+                "sleep_error": done["error"]}
+
+    step("p5_session_objects", p5)
+
+    for n in TABLES:
+        scan.release(cat.table(PDB, n))
+    sess.execute(f"drop database {PDB}")
+    launches = dict(K.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    log(f"partitions: phase {out['seconds']:.1f}s of {PARTITION_LIMIT_S:g}, launches {launches}")
+    return launches
+
+
+def _check_q6_value(res, want: int) -> None:
+    assert len(res.rows) == 1 and res.rows[0][0] == np.int64(want) / 10**4, res.rows
+
+
+def _assert_rows(got, want) -> None:
+    assert [tuple(r) for r in got] == [tuple(w) for w in want], (got, want)
+
+
+def partitions_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the partition phase alone: the
+    short loop for partition work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = partition_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the partition phase"
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -3724,7 +4493,11 @@ def main() -> int:
     ap.add_argument("--constraints-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the constraint phase only: no last line")
+    ap.add_argument("--partitions-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the partition phase only: no last line")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
 
@@ -3760,7 +4533,7 @@ def main() -> int:
         return 0
 
     reset_transfers()
-    report = {}
+    report = {"phase_s": {"build_and_edge_checks": time.perf_counter() - t_script}}
     launches = {}
     kernels = None
     if args.refresh_only:
@@ -3787,11 +4560,17 @@ def main() -> int:
         log(json.dumps({"constraints": constraints_only(report)}))
         log(card)
         return 0
+    if args.partitions_only:
+        log(json.dumps({"partitions": partitions_only(report)}))
+        log(card)
+        return 0
     if not args.spill_only:
         seen = {}
         launches.update(sf10_phases(args, seen, report))
         # --- 7. kernels on the main path's inputs: check and time ---
+        t0 = time.perf_counter()
         kernels = kernel_rows(seen, None)
+        report["phase_s"]["kernel_times"] = time.perf_counter() - t0
         seen.clear()
 
     # --- 8. spill: TPC-H SF100 ---
@@ -3802,7 +4581,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"spill: released {freed} B of cached device columns, device allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
     launches["spill_sf100"] = spill_phase(args, report)
+    report.setdefault("phase_s", {})["spill_sf100"] = time.perf_counter() - t0
     log(f"main path: launches by phase {launches}, h2d_bytes {TRANSFERS['h2d_bytes']}, "
         f"d2h_bytes {TRANSFERS['d2h_bytes']}, d2h_fetches {TRANSFERS['d2h_fetches']}")
     for phase, counts in launches.items():
@@ -3816,6 +4597,10 @@ def main() -> int:
     totals = {k: sum(ph[k] for ph in launches.values()) for k in K.LAUNCHES}
     for row in kernels:
         row["launches"] = totals[row["name"]]
+    phase_s = report["phase_s"]
+    log("phases: " + json.dumps({
+        "seconds": phase_s, "total_s": time.perf_counter() - t_script,
+        "partitions_within_limit": phase_s["partitions"] <= PARTITION_LIMIT_S}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -274,12 +274,6 @@ def test_nulls_order_and_unbound_limit(pair):
 
 UNPORTED = [
     ("load data infile 'rows.txt' into table t", "LOAD DATA"),
-    ("create table p (a int) partition by hash(a) partitions 4", "PARTITION BY"),
-    ("alter table t add partition (partition p1 values less than (10))", "partitions"),
-    ("alter table t truncate partition p0", "partitions"),
-    ("alter table t add column z int, drop partition p0", "partitions"),
-    ("create sequence s", "sequences"),
-    ("create temporary table tt (a int)", "temporary tables"),
     ("select cast(a as char) from t", "CAST from int to string"),
 ]
 
@@ -307,6 +301,12 @@ PORTED = [
     ("delete t from t join u on t.a = u.a", "multi-table DELETE"),
     ("alter table t add column z int", "ALTER TABLE"),
     ("create index i on t (a)", "CREATE INDEX"),
+    ("create table p (a int) partition by hash(a) partitions 4", "PARTITION BY"),
+    ("alter table t add partition (partition p1 values less than (10))", "partitions"),
+    ("alter table t truncate partition p0", "partitions"),
+    ("alter table t add column z int, drop partition p0", "partitions"),
+    ("create sequence s", "sequences"),
+    ("create temporary table tt (a int)", "temporary tables"),
 ]
 
 

@@ -80,6 +80,16 @@ def test_show_forms(pair, sql):
     pair.run(sql)
 
 
+@pytest.mark.parametrize("sql", ["show columns from keyed", "show columns from test.keyed",
+                                 "show full columns from keyed", "describe keyed"])
+def test_show_columns_marks_unique_and_multiple_keys(sql):
+    """A UNIQUE index's leading column shows UNI, any other index's MUL,
+    the PRIMARY KEY's PRI, as the JAX Session shows them."""
+    p = WritePair(JaxSession(JaxCatalog()), Session(Catalog(), device="cpu"))
+    p.runs("create table keyed (id int primary key, g varchar(5), v int, d date)",
+           "create unique index ug on keyed (g)", "create index iv on keyed (v, d)", sql)
+
+
 def test_show_status_counts_statements():
     p = WritePair(JaxSession(JaxCatalog()), Session(Catalog(), device="cpu"))
     p.runs("select 1", "create table t (a int)", "select count(*) from t",
@@ -147,6 +157,18 @@ def test_information_schema_is_memoized_per_catalog_state(pair):
     pair.runs("select table_name, table_rows from information_schema.tables "
               "where table_schema = 'app' order by table_name",
               "delete from users where id = 9", "drop table app.more")
+
+
+@pytest.mark.parametrize("name", ["sequences", "partitions"])
+def test_information_schema_tables_once_refused_match_jax(name):
+    """``sequences`` and ``partitions`` were refused by name until their
+    features were ported; each now gives the JAX Session's rows."""
+    p = WritePair(JaxSession(JaxCatalog()), Session(Catalog(), device="cpu"))
+    p.runs("create table h (k int, v int) partition by hash (k) partitions 3",
+           "insert into h values (1, 1), (2, 2), (4, 4), (5, null)",
+           "create table plain (a int)", "create sequence sq start with 7 increment by 3",
+           f"select * from information_schema.{name}",
+           "use information_schema", f"select count(*) from {name}")
 
 
 @pytest.mark.parametrize("name", sorted(IS_UNPORTED))

@@ -516,7 +516,13 @@ class ExprBinder:
 
             return Literal(type=_F64, value=rng.random())
         if op == "sleep":
-            raise NotImplementedError("SLEEP() is not supported by the torch port")
+            from tidb_tpu_torch.utils.sqlkiller import interruptible_sleep
+
+            a = self.lower(e.args[0])
+            if isinstance(a, Literal) and isinstance(a.value, (int, float)):
+                # at most 300 s, and a KILL of the statement cuts it short
+                interruptible_sleep(min(max(float(a.value), 0.0), 300.0))
+            return Literal(type=INT64, value=0)
         if op == "benchmark":
             # evaluated-for-timing in MySQL; here the whole plan is one
             # compiled program — accept and return the 0 contract

@@ -32,6 +32,13 @@ narrowest one wins); an OR whose every disjunct is such a range narrows
 it to their union (``ScanSite.merge_ranges``). The executor then gathers
 only those rows on the host (``fetch_site_rows``) and copies that batch
 to the device, past the scan cache; the predicate still filters it.
+
+Partition pruning: a Selection over a Scan of a partitioned table keeps
+the partitions its predicate can reach (``ScanSite.partitions``, from the
+partition defs at the version the scan reads: ``_prune_partitions``), and
+the scan copies only their blocks. A narrowed read searches the whole
+table's index (its range lies inside the predicate), and a scan carrying
+the row handle is never pruned.
 """
 
 from __future__ import annotations
@@ -168,6 +175,9 @@ class ScanSite:
     # index merge (union): an OR of such ranges; the fetch gathers the
     # union of their rows once
     merge_ranges: Optional[Tuple[Tuple[str, int, int], ...]] = None
+    # partition pruning: the partition ids the predicate can reach; None
+    # scans every partition
+    partitions: Optional[Tuple[int, ...]] = None
 
     @property
     def narrowed(self) -> bool:
@@ -236,6 +246,53 @@ def _index_candidates(t) -> list:
         if icols and icols[0] not in candidates:
             candidates.append(icols[0])
     return candidates
+
+
+def _prune_partitions(pred, scan: L.Scan, resolver):
+    """The partition ids of `scan`'s table that `pred` can reach, or None
+    (all of them): RANGE by comparing the predicate's range on the
+    partition column with each partition's bounds, LIST by its values,
+    HASH for a closed range narrower than the partition count. The defs
+    are those at the version the scan reads."""
+    if ROWID_NAME in scan.columns:
+        return None  # row handles address the whole block concatenation
+    try:
+        t, v = resolver(scan.db, scan.table)
+    except Exception:
+        return None
+    part = t.partition_defs_at(v)
+    if part is None or pred is None:
+        return None
+    kind, pcol, spec = part
+    r = _extract_col_range(pred, scan, t, pcol, open_ok=True)
+    if r is None:
+        return None
+    _col, lo, hi = r
+    if lo is not None and hi is not None and lo > hi:
+        return ()
+    if kind == "list":
+        keep = tuple(i for i, (_n, vals) in enumerate(spec) if any(
+            v is not None and (lo is None or v >= lo) and (hi is None or v <= hi)
+            for v in vals))
+        return None if len(keep) == len(spec) else keep
+    if kind == "hash":
+        n = int(spec)
+        if lo is None or hi is None or hi - lo + 1 >= n:
+            return None
+        return tuple(sorted({(x % n + n) % n for x in range(lo, hi + 1)}))
+    keep, lower = [], None
+    for i, (_n, u) in enumerate(spec):
+        # partition i holds [lower, u)
+        if (lo is None or u is None or lo <= u - 1) and (hi is None or lower is None or hi >= lower):
+            keep.append(i)
+        lower = u
+    return None if len(keep) == len(spec) else tuple(keep)
+
+
+def partition_label(t, version, parts) -> str:
+    """EXPLAIN's ``partitions=[...]`` of a pruned scan, by name."""
+    names = t.partition_names(version)
+    return " partitions=[" + ",".join(names[i] for i in parts) + "]"
 
 
 def _extract_pk_range(pred, scan: L.Scan, resolver):
@@ -414,12 +471,13 @@ NARROW_SHARE_UNCACHED = 1 / 2
 
 def _narrow_pays(t, site: ScanSite, version: int, device, selected: int) -> bool:
     """Whether reading `selected` rows of the range (of a union, the sum
-    of its ranges') beats a full scan."""
+    of its ranges') beats a full scan (of the kept partitions)."""
     from tidb_tpu_torch.storage.scan import ROW_MASK, is_cached
 
-    n = sum(b.nrows for b in t.blocks(version))
+    n = sum(b.nrows for b in t.blocks(version, partitions=site.partitions))
     cap, dev = pad_capacity(n), str(resolve_device(device))
-    cached = all(is_cached(t, version, c, cap, dev) for c in (*site.columns, ROW_MASK))
+    cached = all(is_cached(t, version, c, cap, dev, site.partitions)
+                 for c in (*site.columns, ROW_MASK))
     return selected <= n * (NARROW_SHARE_CACHED if cached else NARROW_SHARE_UNCACHED)
 
 
@@ -758,6 +816,7 @@ class PlanCompiler:
         # the access path a Selection hands to the Scan right below it
         self._pending_range = None
         self._pending_merge = None
+        self._pending_parts = None
 
     def fresh_id(self) -> int:
         self._next_id += 1
@@ -856,16 +915,18 @@ class PlanCompiler:
                         plan.child, post_pred=plan.predicate
                     )
             if isinstance(plan.child, L.Scan):
-                # the scan below takes the predicate's access path
+                # the scan below takes the predicate's access path and
+                # reads the partitions the predicate can reach
                 self._pending_range = _extract_pk_range(
                     plan.predicate, plan.child, self.resolver)
                 if self._pending_range is None:
                     self._pending_merge = _extract_index_merge(
                         plan.predicate, plan.child, self.resolver)
+                self._pending_parts = _prune_partitions(plan.predicate, plan.child, self.resolver)
             try:
                 child, dicts = self._build(plan.child)
             finally:
-                self._pending_range = self._pending_merge = None
+                self._pending_range = self._pending_merge = self._pending_parts = None
             pred = compile_expr(plan.predicate, dicts)
 
             def fn_sel(inputs, caps):
@@ -967,11 +1028,17 @@ class PlanCompiler:
 
     def _build_scan(self, plan: L.Scan):
         nid = self.fresh_id()
+        parts = self._pending_parts
         self.scans.append(ScanSite(nid, plan.db, plan.table, plan.alias, plan.columns,
                                    pk_range=self._pending_range,
-                                   merge_ranges=self._pending_merge))
-        self._pending_range = self._pending_merge = None
+                                   merge_ranges=self._pending_merge, partitions=parts))
+        self._pending_range = self._pending_merge = self._pending_parts = None
         t, v = self.resolver(plan.db, plan.table)
+        if parts is not None and self.node_labels:
+            # EXPLAIN ANALYZE: the scan is a leaf, its label the newest;
+            # the kept partitions by id, as the JAX package labels them
+            lid, depth, text = self.node_labels[-1]
+            self.node_labels[-1] = (lid, depth, text + f" partitions={list(parts)}")
         missing = [c for c in plan.columns if c not in t.schema.types and c != ROWID_NAME]
         if missing:
             raise NotImplementedError(f"virtual scan columns {missing} are not ported yet")
@@ -1753,7 +1820,8 @@ class PhysicalExecutor:
             narrowed = fetch_site_rows(t, s, v, self.device)
             inputs[s.node_id] = (
                 narrowed if narrowed is not None
-                else scan_table(t, s.columns, version=v, device=self.device)[0])
+                else scan_table(t, s.columns, version=v, device=self.device,
+                                partitions=s.partitions)[0])
         # compile-time assumptions must still hold at the fetched version
         for nid, col in cq.nonnull:
             t, v = resolved[nid]

@@ -57,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import List, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -176,12 +176,51 @@ def _pipeline_below(plan):
     return None
 
 
-def _pick_big_scan(executor, scans, flags):
-    """(index, (table, version) list) of the largest chunkable scan."""
-    resolved = [executor._resolve(s.db, s.table) for s in scans]
+class _Read(NamedTuple):
+    """What one scan reads: a table's version, and the partition ids it
+    keeps (None: every partition; untagged blocks are always read)."""
+
+    table: Any
+    version: int
+    partitions: Optional[tuple] = None
+
+    def blocks(self):
+        return self.table.blocks(self.version, partitions=self.partitions)
+
+    @property
+    def nrows(self) -> int:
+        return sum(b.nrows for b in self.blocks())
+
+
+def _resolve_sites(executor, sites) -> dict:
+    """Scan site node id -> the ``_Read`` of the compiled site."""
+    return {s.node_id: _Read(*executor._resolve(s.db, s.table), s.partitions) for s in sites}
+
+
+def _resolve_scans(executor, scans, root) -> list:
+    """The ``_Read`` of each logical scan under `root`. The sizing runs
+    before the compiler, so a scan under a Selection is pruned here as
+    the compiler will prune it (``_prune_partitions``)."""
+    preds, stack = {}, [root]
+    while stack:
+        p = stack.pop()
+        if isinstance(p, L.Selection) and isinstance(p.child, L.Scan):
+            preds[id(p.child)] = p.predicate
+        stack.extend(_plan_children(p))
+    out = []
+    for s in scans:
+        parts = (P._prune_partitions(preds[id(s)], s, executor._resolve)
+                 if id(s) in preds else None)
+        out.append(_Read(*executor._resolve(s.db, s.table), parts))
+    return out
+
+
+def _pick_big_scan(executor, scans, flags, root):
+    """(index, ``_Read`` list) of the largest chunkable scan."""
+    resolved = _resolve_scans(executor, scans, root)
     big_i = None
     for i, ok in enumerate(flags):
-        if ok and (big_i is None or resolved[i][0].nrows > resolved[big_i][0].nrows):
+        if ok and (big_i is None or resolved[i].nrows > resolved[big_i].nrows):
             big_i = i
     return big_i, resolved
 
@@ -215,11 +254,11 @@ def _budget_ceiling(executor) -> int:
     return min(top, int(executor.quota_bytes)) if executor.quota_bytes else top
 
 
-def _row_bytes(table, version, columns) -> int:
+def _row_bytes(r: _Read, columns) -> int:
     """Device bytes per scanned row: data + validity per column, and the
     row mask."""
     total = 1
-    for b in table.blocks(version):
+    for b in r.table.blocks(r.version):
         for name in columns:
             c = b.columns.get(name)
             total += (c.data.dtype.itemsize if c is not None else 8) + 1
@@ -246,21 +285,20 @@ def _stream_sizing(executor, scans, resolved, big_i, threshold, max_cap, force=F
     a chunk's own columns count too, since the quota sends chunks from
     host RAM. When one minimal chunk already overruns the quota,
     streaming declines and admission's verdict stands."""
-    t, v = resolved[big_i]
-    big = scans[big_i]
+    nrows = resolved[big_i].nrows
     budget = _budget(executor)
     quota = executor.quota_bytes
-    rb = _row_bytes(t, v, big.columns)
-    others = [(s, ot, ov) for i, (s, (ot, ov)) in enumerate(zip(scans, resolved)) if i != big_i]
-    others_bytes = sum(pad_capacity(ot.nrows) * _row_bytes(ot, ov, s.columns) for s, ot, ov in others)
+    rb = _row_bytes(resolved[big_i], scans[big_i].columns)
+    others_bytes = sum(pad_capacity(r.nrows) * _row_bytes(r, s.columns)
+                       for i, (s, r) in enumerate(zip(scans, resolved)) if i != big_i)
     mult = _MULT_SCAN if len(scans) == 1 else _MULT_JOIN
     per_row = max(mult * rb, _ROW_FLOOR)
     facts = {"budget": budget, "others_bytes": others_bytes, "per_row": per_row}
     if threshold == -1 or force:
-        whole = mult * (pad_capacity(t.nrows) * rb + others_bytes)
-        if not force and t.nrows <= max_cap and whole <= budget:
+        whole = mult * (pad_capacity(nrows) * rb + others_bytes)
+        if not force and nrows <= max_cap and whole <= budget:
             return None, facts
-        if t.nrows <= max_cap and others_bytes * 4 > budget:
+        if nrows <= max_cap and others_bytes * 4 > budget:
             # the resident sides alone do not fit: streaming cannot help,
             # and the unpaged plan still has its one tile
             return None, facts
@@ -270,35 +308,35 @@ def _stream_sizing(executor, scans, resolved, big_i, threshold, max_cap, force=F
         else:
             fit = avail // per_row
         chunk_rows = min(max_cap, max(_MIN_CHUNK, _pow2_floor(fit)))
-        if t.nrows > max_cap:
-            facts["why"] = f"{t.nrows} rows exceed the {max_cap}-row tile"
+        if nrows > max_cap:
+            facts["why"] = f"{nrows} rows exceed the {max_cap}-row tile"
         elif force:
             facts["why"] = f"admission rejected the unpaged plan under a {quota} B quota"
         else:
             facts["why"] = f"unpaged working set ~{whole} B exceeds the {budget} B budget"
     else:
-        if t.nrows <= threshold:
+        if nrows <= threshold:
             return None, facts
         chunk_rows = max(int(threshold), 1)
-        facts["why"] = f"{t.nrows} rows exceed stream_rows={threshold}"
+        facts["why"] = f"{nrows} rows exceed stream_rows={threshold}"
     if quota and min(chunk_rows, _MIN_CHUNK) * per_row > budget:
         return None, facts
     return chunk_rows, facts
 
 
-def _placed_bytes(executor, table, version, columns) -> int:
+def _placed_bytes(executor, r: _Read, columns) -> int:
     """Device bytes a scan of `columns` places (data and validity per
-    column at the table's tile, and the row mask). Without a quota only
+    column at the read's tile, and the row mask). Without a quota only
     what the scan cache does not hold yet counts; under one every column
     counts, cached or not: the quota bounds what the statement holds."""
-    tile = pad_capacity(table.nrows)
+    tile = pad_capacity(r.nrows)
     dev = str(executor.device)
     counted = (lambda c: True) if executor.quota_bytes else (
-        lambda c: not _scan.is_cached(table, version, c, tile, dev))
+        lambda c: not _scan.is_cached(r.table, r.version, c, tile, dev, r.partitions))
     n = tile if counted(_scan.ROW_MASK) else 0
     for c in columns:
         if counted(c):
-            n += tile * (table.schema.types[c].np_dtype.itemsize + 1)
+            n += tile * (r.table.schema.types[c].np_dtype.itemsize + 1)
     return n
 
 
@@ -368,12 +406,11 @@ def _memory_plan(executor, plan, scans, resolved, big_i, chunk_tile, facts, part
     device if they fit beside the working set. Under a quota the big
     columns count whether cached or not, so a quota smaller than them
     sends chunks from host RAM."""
-    t, v = resolved[big_i]
     budget = _free_budget(executor)
-    big_new = _placed_bytes(executor, t, v, scans[big_i].columns)
+    big_new = _placed_bytes(executor, resolved[big_i], scans[big_i].columns)
     others_new = 0 if executor.quota_bytes else sum(
-        _placed_bytes(executor, ot, ov, s.columns)
-        for i, (s, (ot, ov)) in enumerate(zip(scans, resolved)) if i != big_i
+        _placed_bytes(executor, r, s.columns)
+        for i, (s, r) in enumerate(zip(scans, resolved)) if i != big_i
     )
     work = others_new + facts["others_bytes"] + chunk_tile * facts["per_row"]
     why = (f"columns to place {big_new} B, working set ~{work} B, results "
@@ -383,13 +420,14 @@ def _memory_plan(executor, plan, scans, resolved, big_i, chunk_tile, facts, part
     return big_new + work <= budget * _BUDGET_FILL, why + note
 
 
-def _fetch_resident(executor, site, st, sv):
+def _fetch_resident(executor, site, r: _Read):
     """One resident (non-chunked) site's device batch: its index range's
-    rows for a narrowed site, else the whole table (device-cached)."""
-    narrowed = P.fetch_site_rows(st, site, sv, executor.device)
+    rows for a narrowed site, else its kept partitions (device-cached)."""
+    narrowed = P.fetch_site_rows(r.table, site, r.version, executor.device)
     if narrowed is not None:
         return narrowed
-    return _scan.scan_table(st, site.columns, version=sv, device=executor.device)[0]
+    return _scan.scan_table(r.table, site.columns, version=r.version, device=executor.device,
+                            partitions=r.partitions)[0]
 
 
 def _chunkable(site) -> bool:
@@ -421,10 +459,10 @@ def has_staged(plan) -> bool:
     return isinstance(plan, L.Staged) or any(has_staged(c) for c in _plan_children(plan))
 
 
-def _chunk_blocks(table, version, columns, chunk_rows: int):
-    """Yield HostBlocks of <= chunk_rows rows over the table's blocks
+def _chunk_blocks(r: _Read, columns, chunk_rows: int):
+    """Yield HostBlocks of <= chunk_rows rows over the read's blocks
     (numpy views: no copies until the device transfer)."""
-    for b in table.blocks(version):
+    for b in r.blocks():
         n = b.nrows
         for a in range(0, n, chunk_rows):
             z = min(a + chunk_rows, n)
@@ -528,12 +566,12 @@ def _check_assumptions(sp, site_tables) -> None:
     """Compile-time assumptions (NULL-free columns, bounds that proved a
     decimal SUM safe) must hold at the versions scanned."""
     for nid, col in sp.nonnull:
-        st, sv = site_tables[nid]
-        if st.col_has_nulls(col, sv):
+        r = site_tables[nid]
+        if r.table.col_has_nulls(col, r.version):
             raise StaleWidthsError()
     for nid, col, lo, hi in sp.bound_checks:
-        st, sv = site_tables[nid]
-        cb = st.col_bounds(col, sv)
+        r = site_tables[nid]
+        cb = r.table.col_bounds(col, r.version)
         if cb is not None and (cb[0] < lo or cb[1] > hi):
             raise StaleWidthsError()
 
@@ -544,7 +582,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _chunk_feeds(executor, t, v, site, chunk_rows, chunk_tile, inputs_base, device_resident,
+def _chunk_feeds(executor, r: _Read, site, chunk_rows, chunk_tile, inputs_base, device_resident,
                  seconds):
     """Yield the pipeline's inputs chunk by chunk: every resident site's
     full batch and one chunk of the big scan's site, in a fixed tile (the
@@ -552,8 +590,9 @@ def _chunk_feeds(executor, t, v, site, chunk_rows, chunk_tile, inputs_base, devi
     columns; host chunks copy their rows from the table's blocks, and
     the copies' seconds add up in seconds["h2d"]."""
     if device_resident:
-        full = _scan.scan_table(t, site.columns, version=v, device=executor.device)[0]
-        for a in range(0, t.nrows, chunk_tile):
+        full = _scan.scan_table(r.table, site.columns, version=r.version,
+                                device=executor.device, partitions=r.partitions)[0]
+        for a in range(0, r.nrows, chunk_tile):
             z = min(a + chunk_tile, full.capacity)
             pad = chunk_tile - (z - a)
             cols = {
@@ -565,7 +604,7 @@ def _chunk_feeds(executor, t, v, site, chunk_rows, chunk_tile, inputs_base, devi
             yield inputs
         return
     seconds["h2d"] = 0.0
-    for hb in _chunk_blocks(t, v, site.columns, chunk_rows):
+    for hb in _chunk_blocks(r, site.columns, chunk_rows):
         t0 = time.perf_counter()
         inputs = dict(inputs_base)
         inputs[site.node_id] = block_to_batch(hb, capacity=chunk_tile, device=executor.device)
@@ -583,7 +622,7 @@ def spill_path(executor, plan) -> Optional[str]:
     m = _pipeline_below(plan)
     if m is not None:
         agg, scans, flags = m
-        big_i, resolved = _pick_big_scan(executor, scans, flags)
+        big_i, resolved = _pick_big_scan(executor, scans, flags, agg.child)
         if _partition_spec(executor, agg, scans, flags, resolved) is not None:
             return "grace hash"
         if big_i is not None and _stream_sizing(
@@ -595,7 +634,7 @@ def spill_path(executor, plan) -> Optional[str]:
     if isinstance(node, L.Sort):
         scans, flags = [], []
         if _collect_pipeline_scans(node.child, scans, flags) and scans:
-            big_i, resolved = _pick_big_scan(executor, scans, flags)
+            big_i, resolved = _pick_big_scan(executor, scans, flags, node.child)
             if big_i is not None and _stream_sizing(
                     executor, scans, resolved, big_i, executor.stream_rows,
                     P._MAX_CAP)[0] is not None:
@@ -620,7 +659,7 @@ def try_streamed(executor, plan, conservative=False, force=False):
     if m is None:
         return None
     agg, scans, flags = m
-    big_i, resolved = _pick_big_scan(executor, scans, flags)
+    big_i, resolved = _pick_big_scan(executor, scans, flags, agg.child)
     if big_i is None:
         return None
     spec = _partition_spec(executor, agg, scans, flags, resolved, force)
@@ -636,23 +675,22 @@ def try_streamed(executor, plan, conservative=False, force=False):
     if sp is None:
         return None
 
-    site_tables = {
-        s.node_id: executor._resolve(s.db, s.table) for s in [sp.big_site] + sp.other_sites
-    }
+    site_tables = _resolve_sites(executor, [sp.big_site] + sp.other_sites)
     _check_assumptions(sp, site_tables)
-    t, v = site_tables[sp.big_site.node_id]
+    big = site_tables[sp.big_site.node_id]
+    nrows = big.nrows
     # one fixed tile for every chunk (the last, shorter one pads up)
     chunk_tile = pad_capacity(chunk_rows)
-    chunks = -(-t.nrows // chunk_tile)
+    chunks = -(-nrows // chunk_tile)
     device_resident, mode_why = _memory_plan(
         executor, plan, scans, resolved, big_i, chunk_tile, facts,
-        _partial_bytes(sp, t.nrows, chunks),
+        _partial_bytes(sp, nrows, chunks),
     )
     inputs_base = {
-        s.node_id: _fetch_resident(executor, s, *site_tables[s.node_id]) for s in sp.other_sites
+        s.node_id: _fetch_resident(executor, s, site_tables[s.node_id]) for s in sp.other_sites
     }
     rec = {
-        "path": "streamed", "table": t.name, "rows": t.nrows,
+        "path": "streamed", "table": big.table.name, "rows": nrows,
         "mode": "device" if device_resident else "host",
         "why": facts["why"], "mode_why": mode_why, "budget_bytes": facts["budget"],
         "quota_bytes": executor.quota_bytes, "chunk_rows": chunk_rows, "chunk_tile": chunk_tile,
@@ -662,7 +700,7 @@ def try_streamed(executor, plan, conservative=False, force=False):
     rec["seconds"] = {}
     t0 = time.perf_counter()
     feeds = _chunk_feeds(
-        executor, t, v, sp.big_site, chunk_rows, chunk_tile, inputs_base, device_resident,
+        executor, big, sp.big_site, chunk_rows, chunk_tile, inputs_base, device_resident,
         rec["seconds"],
     )
     rec["chunk_s"] = []
@@ -968,11 +1006,12 @@ def _partition_spec(executor, agg, scans, flags, resolved, force=False):
     representation: the same (kind, scale), and no per-table dictionary
     codes across two tables."""
     max_cap, share = P._MAX_CAP, 8 if force else 4
-    sizes = [t.nrows * _row_bytes(t, v, s.columns) for s, (t, v) in zip(scans, resolved)]
+    rows = [r.nrows for r in resolved]
+    sizes = [n * _row_bytes(r, s.columns) for s, r, n in zip(scans, resolved, rows)]
 
     def big_below(limit):
-        bigs = [i for i, ((t, _v), sz) in enumerate(zip(resolved, sizes))
-                if t.nrows > max_cap or sz > limit // share]
+        bigs = [i for i, (n, sz) in enumerate(zip(rows, sizes))
+                if n > max_cap or sz > limit // share]
         unchunkable = [i for i in bigs if not flags[i]]
         return bigs, unchunkable, bool(unchunkable) or (force and len(bigs) >= 2)
 
@@ -991,7 +1030,7 @@ def _partition_spec(executor, agg, scans, flags, resolved, force=False):
         return None
     key_types = set()
     for i in bigs:
-        t, _v = resolved[i]
+        t = resolved[i].table
         col = cols[scans[i].alias]
         ty = t.schema.types[col]
         key_types.add((ty.kind, ty.scale))
@@ -1000,8 +1039,8 @@ def _partition_spec(executor, agg, scans, flags, resolved, force=False):
     if len(key_types) > 1:
         return None
     why = "; ".join(
-        f"{scans[i].alias}: {resolved[i][0].nrows} rows"
-        + (f" exceed the {max_cap}-row tile" if resolved[i][0].nrows > max_cap
+        f"{scans[i].alias}: {rows[i]} rows"
+        + (f" exceed the {max_cap}-row tile" if rows[i] > max_cap
            else f", {sizes[i]} B exceed {bar} B of the {budget} B budget")
         + ("" if flags[i] else " (a build side row chunks cannot split)")
         for i in bigs
@@ -1045,19 +1084,19 @@ def _take(cols: dict, idx: torch.Tensor, tile: int) -> Batch:
 
 
 class _Assignment:
-    """Partition ids of one (table, key column) for one run: on the
+    """Partition ids of one (read, key column) for one run: on the
     device over the cached tile, or per host block."""
 
-    def __init__(self, executor, table, version, col, parts, on_device):
-        self.table, self.version = table, version
+    def __init__(self, executor, table, version, col, parts, on_device, partitions=None):
+        self.read = r = _Read(table, version, partitions)
         self.on_device, self.device = on_device, executor.device
         if on_device:
-            full = _scan.scan_table(table, [col], version=version, device=self.device)[0]
+            full = self._scan([col])
             c = full.cols[col]
             self.ids = [_part_ids(c.data, c.valid, full.row_valid, parts)]
         else:
             self.ids = []
-            for b in table.blocks(version):
+            for b in r.blocks():
                 hc = b.columns.get(col)
                 if hc is None:
                     ids = torch.zeros(b.nrows, dtype=torch.int16)
@@ -1068,6 +1107,11 @@ class _Assignment:
         self.counts = torch.stack([torch.bincount(i, minlength=parts + 1)[:parts]
                                    for i in self.ids]).sum(0)
         self._rows = {}
+
+    def _scan(self, columns) -> Batch:
+        r = self.read
+        return _scan.scan_table(r.table, columns, version=r.version, device=self.device,
+                                partitions=r.partitions)[0]
 
     @property
     def nbytes(self) -> int:
@@ -1085,22 +1129,18 @@ class _Assignment:
         """Partition k of `columns` in a `tile`-row batch on the device."""
         idx = self.rows(k)
         if self.on_device:
-            full = _scan.scan_table(
-                self.table, columns, version=self.version, device=self.device
-            )[0]
-            return _take(full.cols, idx[0], tile)
+            return _take(self._scan(columns).cols, idx[0], tile)
+        types = self.read.table.schema.types
         cols = {c: ([], []) for c in columns}
         n = 0
-        for b, ix in zip(self.table.blocks(self.version), idx):
+        for b, ix in zip(self.read.blocks(), idx):
             ix = ix.numpy()
             n += len(ix)
             for c in columns:
                 hc = b.columns.get(c)
                 cols[c][0].append(
-                    hc.data[ix] if hc is not None
-                    else np.zeros(len(ix), dtype=self.table.schema.types[c].np_dtype))
+                    hc.data[ix] if hc is not None else np.zeros(len(ix), dtype=types[c].np_dtype))
                 cols[c][1].append(hc.valid[ix] if hc is not None else np.zeros(len(ix), bool))
-        types = self.table.schema.types
         hb = HostBlock({c: HostColumn(types[c], np.concatenate(d), np.concatenate(vm))
                         for c, (d, vm) in cols.items()}, n)
         return block_to_batch(hb, capacity=tile, device=self.device)
@@ -1128,7 +1168,7 @@ def try_partitioned(executor, plan, conservative=False, force=False):
     if m is None:
         return None
     agg, scans, flags = m
-    resolved = [executor._resolve(s.db, s.table) for s in scans]
+    resolved = _resolve_scans(executor, scans, agg.child)
     spec = _partition_spec(executor, agg, scans, flags, resolved, force)
     if spec is None:
         return None
@@ -1141,34 +1181,35 @@ def try_partitioned(executor, plan, conservative=False, force=False):
     parted = [s for s in sites if s.alias in cols]
     if any(s.narrowed for s in parted):
         return None  # an index range on a partitioned site
-    site_tables = {s.node_id: executor._resolve(s.db, s.table) for s in sites}
+    site_tables = _resolve_sites(executor, sites)
     _check_assumptions(sp, site_tables)
     budget, max_cap = spec["budget"], P._MAX_CAP
     parts = 2
     while parts < 64 and (spec["big_bytes"] * 4) // parts > budget:
         parts *= 2
-    most = max(site_tables[s.node_id][0].nrows for s in parted)
+    rows = {s.node_id: site_tables[s.node_id].nrows for s in sites}
+    most = max(rows[s.node_id] for s in parted)
     parts = max(parts, _next_pow2(-(-most // max_cap)))
 
     # device or host partitions: the partitioned scans' columns, their
     # partition ids and a partition's working set must fit beside the
     # resident sides
-    keys = {}  # (table uid, version, column) -> sites
+    keys = {}  # (table uid, version, column, partitions) -> sites
     for s in parted:
-        st, sv = site_tables[s.node_id]
-        keys.setdefault((st.uid, sv, cols[s.alias]), []).append(s)
+        r = site_tables[s.node_id]
+        keys.setdefault((r.table.uid, r.version, cols[s.alias], r.partitions), []).append(s)
     residents = [s for s in sites if s.alias not in cols]
-    rb = {s.node_id: _row_bytes(*site_tables[s.node_id], s.columns) for s in sites}
-    resident_bytes = sum(pad_capacity(site_tables[s.node_id][0].nrows) * rb[s.node_id]
-                         for s in residents)
-    scanned = {}  # (table uid, version) -> (table, the columns its partitioned sites read)
+    rb = {s.node_id: _row_bytes(site_tables[s.node_id], s.columns) for s in sites}
+    resident_bytes = sum(pad_capacity(rows[s.node_id]) * rb[s.node_id] for s in residents)
+    # (table uid, version, partitions) -> (read, the columns its
+    # partitioned sites read)
+    scanned = {}
     for s in parted:
-        st, sv = site_tables[s.node_id]
-        scanned.setdefault((st.uid, sv), (st, set()))[1].update(s.columns)
-    placed = sum(_placed_bytes(executor, st, sv, sorted(c))
-                 for (_u, sv), (st, c) in scanned.items())
-    placed += sum(2 * pad_capacity(site_tables[ss[0].node_id][0].nrows) for ss in keys.values())
-    work = sum(pad_capacity(site_tables[s.node_id][0].nrows // parts)
+        r = site_tables[s.node_id]
+        scanned.setdefault((r.table.uid, r.version, r.partitions), (r, set()))[1].update(s.columns)
+    placed = sum(_placed_bytes(executor, r, sorted(c)) for r, c in scanned.values())
+    placed += sum(2 * pad_capacity(rows[ss[0].node_id]) for ss in keys.values())
+    work = sum(pad_capacity(rows[s.node_id] // parts)
                * max(_MULT_JOIN * rb[s.node_id], _ROW_FLOOR) for s in parted)
     free = _free_budget(executor)
     free, note = _release_for(executor, plan, placed + work + resident_bytes, free)
@@ -1176,10 +1217,11 @@ def try_partitioned(executor, plan, conservative=False, force=False):
 
     t0 = time.perf_counter()
     while True:
-        assigns = {
-            k: _Assignment(executor, site_tables[ss[0].node_id][0], k[1], k[2], parts, on_device)
-            for k, ss in keys.items()
-        }
+        assigns = {}
+        for k, ss in keys.items():
+            r = site_tables[ss[0].node_id]
+            assigns[k] = _Assignment(executor, r.table, r.version, k[2], parts, on_device,
+                                     r.partitions)
         counts = fetch([torch.stack([a.counts for a in assigns.values()])])[0]
         if int(counts.max()) <= max_cap:
             break
@@ -1192,7 +1234,7 @@ def try_partitioned(executor, plan, conservative=False, force=False):
         return None  # key skew: a hot key fills one partition
     _sync(executor.device)
     assign_s = time.perf_counter() - t0
-    inputs_base = {s.node_id: _fetch_resident(executor, s, *site_tables[s.node_id])
+    inputs_base = {s.node_id: _fetch_resident(executor, s, site_tables[s.node_id])
                    for s in residents}
     labels = {k: f"{ss[0].table}.{k[2]}" for k, ss in keys.items()}
     rec = {
@@ -1353,7 +1395,7 @@ def try_streamed_sort(executor, plan, conservative=False):
     scans, flags = [], []
     if not _collect_pipeline_scans(sort.child, scans, flags) or not scans:
         return None
-    big_i, resolved = _pick_big_scan(executor, scans, flags)
+    big_i, resolved = _pick_big_scan(executor, scans, flags, sort.child)
     if big_i is None:
         return None
     chunk_rows, facts = _stream_sizing(executor, scans, resolved, big_i, threshold, P._MAX_CAP)
@@ -1362,23 +1404,21 @@ def try_streamed_sort(executor, plan, conservative=False):
     sp = _sort_stream_plan(executor, plan, sort, scans[big_i], conservative=conservative)
     if sp is None:
         return None
-    site_tables = {
-        s.node_id: executor._resolve(s.db, s.table) for s in [sp.big_site] + sp.other_sites
-    }
+    site_tables = _resolve_sites(executor, [sp.big_site] + sp.other_sites)
     _check_assumptions(sp, site_tables)
-    t, v = site_tables[sp.big_site.node_id]
+    big = site_tables[sp.big_site.node_id]
     chunk_tile = pad_capacity(chunk_rows)
     device_resident, mode_why = _memory_plan(
         executor, plan, scans, resolved, big_i, chunk_tile, facts, 0
     )
     inputs_base = {
-        s.node_id: _fetch_resident(executor, s, *site_tables[s.node_id]) for s in sp.other_sites
+        s.node_id: _fetch_resident(executor, s, site_tables[s.node_id]) for s in sp.other_sites
     }
     out_names = [c.internal for c in plan.schema]
     executor.stream_log = []
     executor.last_compiled = None
     rec = {
-        "path": "sort", "table": t.name, "rows": t.nrows,
+        "path": "sort", "table": big.table.name, "rows": big.nrows,
         "mode": "device" if device_resident else "host",
         "why": facts["why"], "mode_why": mode_why, "budget_bytes": facts["budget"],
         "quota_bytes": executor.quota_bytes, "chunk_rows": chunk_rows, "chunk_tile": chunk_tile,
@@ -1395,7 +1435,7 @@ def try_streamed_sort(executor, plan, conservative=False):
     rec["seconds"] = {}
     t0 = time.perf_counter()
     feeds = _chunk_feeds(
-        executor, t, v, sp.big_site, chunk_rows, chunk_tile, inputs_base, device_resident,
+        executor, big, sp.big_site, chunk_rows, chunk_tile, inputs_base, device_resident,
         rec["seconds"],
     )
     for inputs in feeds:

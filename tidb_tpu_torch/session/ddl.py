@@ -16,11 +16,21 @@ generated column or a FOREIGN KEY depends on the column
 (STORED and VIRTUAL alike) are computed row by row on the host when
 rows are written (``_fill_generated``) and over the whole table after
 ALTER TABLE ... ADD ... AS or a MODIFY of an input
-(``_recompute_generated``). ALTER TABLE's partition forms raise
-``NotImplementedError`` naming themselves.
+(``_recompute_generated``).
+
+Partitioning: a CREATE TABLE's PARTITION BY clause is encoded into the
+table's raw domain (``_encode_partition``); ALTER TABLE ... ADD, DROP and
+TRUNCATE PARTITION run over ``Table.alter_add_partitions`` and
+``alter_drop_partitions`` (DROP and TRUNCATE apply the children's ON
+DELETE actions, as a DELETE does), and EXCHANGE PARTITION swaps a
+partition's blocks with an unpartitioned table's of the same definition
+(``_run_exchange_partition``). Partition DDL other than ADD is refused
+inside a transaction.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -31,23 +41,12 @@ from tidb_tpu_torch.utils.checkeval import (
     CheckEvalError, check_columns, eval_check, validate_expr_ops,
 )
 
-#: ALTER TABLE actions of features not ported yet, by the name their
-#: refusal gives them
-UNPORTED_ALTER = {
-    "add_partition": "partitions (ALTER TABLE ... ADD PARTITION)",
-    "drop_partition": "partitions (ALTER TABLE ... DROP PARTITION)",
-    "truncate_partition": "partitions (ALTER TABLE ... TRUNCATE PARTITION)",
-    "exchange_partition": "EXCHANGE PARTITION",
-}
-
-
-def unported_alter(s):
-    """Why an ALTER TABLE spec is refused, or None."""
-    if not isinstance(s, ast.AlterTable):
-        return None
-    if s.action in UNPORTED_ALTER:
-        return f"{UNPORTED_ALTER[s.action]} is not ported yet"
-    return None
+#: ALTER TABLE actions that manage partitions: none combines with another
+#: spec, and those that remove or move rows take the table locks and are
+#: refused inside a transaction
+PARTITION_ACTIONS = ("add_partition", "drop_partition", "truncate_partition",
+                     "exchange_partition")
+PARTITION_WRITES = ("drop_partition", "truncate_partition", "exchange_partition")
 
 
 def coerce_default(v, typ):
@@ -288,6 +287,236 @@ class DDLMixin:
         self.catalog.schema_version += 1
         self._drop_cached(invalidate=[t])
 
+    # -- partitions -------------------------------------------------------------
+    def _encode_partition(self, schema, part):
+        """A PARTITION BY clause as table metadata, raw-encoded: RANGE
+        bounds as days for DATE, micros for DATETIME and scaled integers
+        for DECIMAL; a HASH count; LIST value sets, NULL in at most one
+        partition. MAXVALUE may only close a RANGE ladder."""
+        from tidb_tpu_torch.dtypes import date_to_days, datetime_to_micros
+        from tidb_tpu_torch.planner.logical import ExprBinder
+
+        kind, pcol, spec = part
+        pcol = pcol.lower()
+        ptype = schema.types.get(pcol)
+        if ptype is None:
+            raise ValueError(f"unknown partition column {pcol!r}")
+        if ptype.kind not in (Kind.INT, Kind.DATE, Kind.DATETIME, Kind.DECIMAL):
+            raise ValueError(
+                "partitioning needs an integer-encoded column "
+                f"({pcol!r} is {ptype.kind.value})")
+        if kind == "hash":
+            n = int(spec)
+            if n < 1:
+                raise ValueError("PARTITIONS must be >= 1")
+            return ("hash", pcol, n)
+
+        def enc_const(upper, what):
+            c = ExprBinder._const_arg(upper)
+            if c is None:
+                raise ValueError(f"{what} expects a constant")
+            v = c.value
+            if v is None:
+                return None
+            if ptype.kind == Kind.DATE and isinstance(v, str):
+                return int(date_to_days(v))
+            if ptype.kind == Kind.DATETIME and isinstance(v, str):
+                return int(datetime_to_micros(v))
+            if ptype.kind == Kind.DECIMAL:
+                return round(float(v) * 10**ptype.scale)
+            return int(v)
+
+        if kind == "list":
+            parts, seen = [], {}
+            for pname, item in spec:
+                if not (isinstance(item, tuple) and item[0] == "in"):
+                    raise ValueError("LIST partitions need VALUES IN (...)")
+                vals = []
+                for e in item[1]:
+                    enc = enc_const(e, "VALUES IN")
+                    if enc in seen:
+                        raise ValueError(
+                            f"list value {enc!r} appears in partitions "
+                            f"{seen[enc]!r} and {pname.lower()!r}")
+                    seen[enc] = pname.lower()
+                    vals.append(enc)
+                parts.append((pname.lower(), tuple(vals)))
+            return ("list", pcol, parts)
+        parts, prev = [], None
+        for pname, upper in spec:
+            if isinstance(upper, tuple) and upper and upper[0] == "in":
+                raise ValueError("VALUES IN requires PARTITION BY LIST")
+            enc = None
+            if upper is not None:
+                enc = enc_const(upper, "VALUES LESS THAN")
+                if enc is None:
+                    raise ValueError("VALUES LESS THAN bound cannot be NULL")
+                if prev is not None and enc <= prev:
+                    raise ValueError("VALUES LESS THAN must be strictly increasing")
+                prev = enc
+            parts.append((pname.lower(), enc))
+        nones = [i for i, (_n, u) in enumerate(parts) if u is None]
+        if nones and nones != [len(parts) - 1]:
+            raise ValueError("MAXVALUE must be the last partition")
+        return ("range", pcol, parts)
+
+    def _run_partition_ddl(self, t, s: ast.AlterTable) -> None:
+        """ALTER TABLE ... ADD, DROP, TRUNCATE or EXCHANGE PARTITION. The
+        rows DROP and TRUNCATE remove go as a DELETE's do: the children's
+        ON DELETE actions apply against the rows left, and a RESTRICT
+        anywhere restores every table and the defs."""
+        db = s.db or self.db
+        if s.action == "add_partition":
+            if t.partition is None or t.partition[0] not in ("range", "list"):
+                raise ValueError("ADD PARTITION requires a RANGE- or LIST-partitioned table")
+            enc = self._encode_partition(t.schema, (t.partition[0], t.partition[1], s.partitions))
+            t.alter_add_partitions(enc[2])
+            return
+        if self._txn is not None:
+            raise ValueError("partition DDL is not allowed inside a transaction; COMMIT first")
+        if s.action == "exchange_partition":
+            self._run_exchange_partition(t, s)
+            return
+        children = self._fk_children(db, s.name)
+        undo: list = []
+        self._fk_undo_snapshot(undo, t)
+        saved_defs = t.partition
+        removed = t.alter_drop_partitions(s.partitions,
+                                          truncate_only=s.action == "truncate_partition")
+        try:
+            if children and removed:
+                self._enforce_parent_constraints(db, s.name, {
+                    rc: self._table_keyset(t, rc) for rc in self._parent_need(t, db, children)},
+                    actions=True, undo=undo)
+        except BaseException:
+            self._fk_undo_restore(undo)
+            t.partition = saved_defs  # the undo restores blocks only
+            raise
+        finally:
+            self._drop_cached(invalidate=[u[0] for u in undo])
+
+    @staticmethod
+    def _exchange_schema_mismatch(t, nt):
+        """The first difference of definition that forbids an exchange,
+        or None."""
+        if nt.partition is not None:
+            return "the WITH TABLE side must be unpartitioned"
+        if list(t.schema.columns) != list(nt.schema.columns):
+            return "column definitions differ"
+        if (t.schema.primary_key or None) != (nt.schema.primary_key or None):
+            return "PRIMARY KEY definitions differ"
+        if set(t.schema.not_null) != set(nt.schema.not_null):
+            return "NOT NULL sets differ"
+        if (t.schema.enums or {}) != (nt.schema.enums or {}):
+            return "ENUM domains differ"
+        if (t.schema.sets or {}) != (nt.schema.sets or {}):
+            return "SET domains differ"
+        if t.indexes != nt.indexes or t.unique_indexes != nt.unique_indexes:
+            return "index definitions differ"
+        if t.generated != nt.generated:
+            return "generated column definitions differ"
+        if [c for _n, c in t.checks] != [c for _n, c in nt.checks]:
+            return "CHECK constraints differ"
+        if t.autoinc_col != nt.autoinc_col:
+            return "AUTO_INCREMENT columns differ"
+        return None
+
+    def _run_exchange_partition(self, t, s: ast.AlterTable) -> None:
+        """ALTER TABLE pt EXCHANGE PARTITION p WITH TABLE nt [WITH |
+        WITHOUT VALIDATION]: the partition's blocks and the plain table's
+        change places, after their definitions prove equal and (WITH
+        VALIDATION, the default) every incoming row routes to p. Blocks
+        cross dictionary spaces through each side's dictionary alignment;
+        a uniqueness conflict with the rest of pt refuses the exchange,
+        and any failure restores both tables."""
+        tdb, tname, validate = s.exchange
+        db = s.db or self.db
+        tdb = tdb or db
+        pname = s.partitions[0]
+        if t.partition is None:
+            raise ValueError("EXCHANGE PARTITION requires a partitioned table")
+        names = t.partition_names()
+        if pname not in names:
+            raise ValueError(f"unknown partition {pname!r}")
+        pid = names.index(pname)
+        nt = self.catalog.table(tdb, tname)
+        why = self._exchange_schema_mismatch(t, nt)
+        if why is not None:
+            raise ValueError(f"tables have different definitions: {why}")
+        if t.fks or nt.fks or self._fk_children(db, s.name) or self._fk_children(tdb, tname):
+            raise ValueError(
+                "EXCHANGE PARTITION is not allowed on tables with foreign keys (MySQL parity)")
+        pcol = t.partition[1]
+        if validate:
+            mismatch = ValueError(
+                f"found a row that does not match the partition {pname!r} "
+                "(use WITHOUT VALIDATION to skip)")
+            null_pid = t.null_partition()
+            for b in nt.blocks():
+                c = b.columns[pcol]
+                pid_of = np.zeros(b.nrows, dtype=np.int64)
+                if c.valid.any():
+                    try:
+                        pid_of[c.valid] = t.partition_of(c.data[c.valid])
+                    except ValueError:
+                        # a value no partition lists is a mismatch for p
+                        raise mismatch from None
+                if ((c.valid & (pid_of != pid)) | (~c.valid & (null_pid != pid))).any():
+                    raise mismatch
+        undo: list = []
+        self._fk_undo_snapshot(undo, t)
+        self._fk_undo_snapshot(undo, nt)
+        try:
+            # alignment can shift codes handed out earlier: grow each
+            # side's dictionaries to their final superset first, then remap
+            for b in nt.blocks():
+                t._align_dictionaries(b)
+            moved_in = [dataclasses.replace(t._align_dictionaries(b), part_id=pid)
+                        for b in nt.blocks()]
+            pt_blocks = []
+            for b in t.blocks():
+                pt_blocks.extend(t.split_by_partition(b) if b.part_id is None else [b])
+            keep = [b for b in pt_blocks if b.part_id != pid]
+            out = [b for b in pt_blocks if b.part_id == pid]
+            self._exchange_check_unique(t, keep, moved_in)
+            for b in out:
+                nt._align_dictionaries(b)
+            moved_out = [dataclasses.replace(nt._align_dictionaries(b), part_id=None)
+                         for b in out]
+            n = sum(b.nrows for b in moved_in) + sum(b.nrows for b in moved_out)
+            t.replace_blocks(keep + moved_in, modified_rows=n)
+            nt.replace_blocks(moved_out, modified_rows=n)
+            if t.autoinc_col:
+                # both allocators stay ahead of both images
+                t.autoinc_next = nt.autoinc_next = max(t.autoinc_next, nt.autoinc_next)
+        except BaseException:
+            self._fk_undo_restore(undo)
+            raise
+        finally:
+            self._drop_cached(invalidate=[t, nt])
+
+    @staticmethod
+    def _exchange_check_unique(t, keep, moved_in) -> None:
+        """Incoming rows must not collide with the rest of the table on
+        the PRIMARY KEY or a UNIQUE index. Each side is unique already,
+        so only the intersection needs checking, in t's encoded domain."""
+        uniq = [(f"unique index {i!r}", list(t.indexes[i]))
+                for i in sorted(t.unique_indexes) if t.indexes.get(i)]
+        if t.schema.primary_key:
+            uniq.append(("primary key", list(t.schema.primary_key)))
+        for label, cols in uniq:
+            sides = []
+            for blocks in (keep, moved_in):
+                mats = [m for b in blocks if b.nrows
+                        for m in [t._key_matrix(b.columns, cols)] if len(m)]
+                sides.append(t._rows_view(np.vstack(mats)) if mats else None)
+            if sides[0] is None or sides[1] is None:
+                continue
+            if np.intersect1d(sides[0], sides[1]).size:
+                raise ValueError(
+                    f"EXCHANGE PARTITION would create a duplicate entry for {label} "
+                    f"({', '.join(cols)})")
+
     # -- RENAME TABLE --------------------------------------------------------
     def _run_rename_table(self, s: ast.RenameTable) -> None:
         """Atomic over its pairs: a later pair's failure moves the earlier
@@ -307,7 +536,9 @@ class DDLMixin:
     # -- ALTER TABLE -----------------------------------------------------------
     def _run_alter_table(self, s: ast.AlterTable) -> None:
         t = self.catalog.table(s.db or self.db, s.name)
-        if s.action == "add" and s.column.generated is not None:
+        if s.action in PARTITION_ACTIONS:
+            self._run_partition_ddl(t, s)
+        elif s.action == "add" and s.column.generated is not None:
             self._alter_add_generated(t, s)
         elif s.action == "add":
             default = s.default
@@ -467,8 +698,7 @@ class DDLMixin:
         and partition specs do not combine."""
         for spec in s.specs:
             act = getattr(spec, "action", None)
-            if act in ("rename", "add_partition", "drop_partition", "truncate_partition",
-                       "exchange_partition"):
+            if act == "rename" or act in PARTITION_ACTIONS:
                 raise ValueError(
                     f"ALTER action {act!r} cannot be combined with other specs in one statement")
         t = self.catalog.table(s.db or self.db, s.name)
@@ -481,6 +711,7 @@ class DDLMixin:
             "generated": list(t.generated),
             "checks": list(t.checks),
             "fks": (list(t.fks), dict(t.fk_actions), dict(t.fk_update_actions)),
+            "partition": t.partition,
             "autoinc": (t.autoinc_col, t.autoinc_next),
             "blocks": list(t.blocks()),
             "dictionaries": dict(t.dictionaries),
@@ -498,6 +729,7 @@ class DDLMixin:
             t._gen_exprs = None
             t.checks = snap["checks"]
             t.fks, t.fk_actions, t.fk_update_actions = snap["fks"]
+            t.partition = snap["partition"]
             t.autoinc_col, t.autoinc_next = snap["autoinc"]
             t.dictionaries = snap["dictionaries"]
             t.replace_blocks(snap["blocks"], modified_rows=0)

@@ -24,7 +24,8 @@ hints). ``tidb_mem_quota_query`` and ``tidb_tpu_stream_rows`` reach the
 executor per statement; the STREAM_ROWS(n) hint for one statement.
 
 information_schema: ``tables``, ``columns``, ``schemata``,
-``statistics``, ``table_constraints`` and ``key_column_usage``
+``statistics``, ``table_constraints``, ``key_column_usage``,
+``referential_constraints``, ``views``, ``sequences`` and ``partitions``
 (storage/catalog.py).
 
 Stale reads: ``AS OF TIMESTAMP``, ``tidb_snapshot`` (which also refuses
@@ -60,12 +61,21 @@ for its statement. An autocommit DML that changed more than
 ``tidb_auto_analyze_ratio`` of a table re-analyzes it. Conflicts of
 REPLACE, ON DUPLICATE KEY UPDATE and INSERT IGNORE resolve against the
 PRIMARY KEY and every UNIQUE index, in the encoded domain. LOAD DATA,
-FOREIGN KEY, CHECK, generated columns, PARTITION BY and ALTER TABLE's
-partition forms, views (and SHOW CREATE VIEW), sequences and temporary
-tables raise ``NotImplementedError`` naming themselves, and so do the
-information_schema tables of those features (``views``, ``sequences``,
-``partitions``, ``referential_constraints``), its diagnostic tables and
-metrics_schema.
+TTL, information_schema's diagnostic tables and metrics_schema raise
+``NotImplementedError`` naming themselves.
+
+Partitioned tables: CREATE TABLE ... PARTITION BY RANGE, HASH or LIST
+(``_encode_partition``), ALTER TABLE ... ADD, DROP, TRUNCATE and
+EXCHANGE PARTITION (session/ddl.py; all but ADD refused inside a
+transaction), pruning in the plan with the defs of the version read and
+EXPLAIN's ``partitions=[...]``. Sequences: CREATE / DROP SEQUENCE,
+NEXTVAL / LASTVAL / SETVAL (folded once per statement, per row in INSERT
+... VALUES; LASTVAL per session). LOCAL TEMPORARY tables live in the
+session's view of the catalog (``_SessionCatalog``): invisible to other
+sessions and to SHOW TABLES, shadowing a shared table of their name.
+The session-state builtins fold before planning: the advisory locks
+(GET_LOCK and its family, shared per catalog), RANDOM_BYTES, the SQL
+digest functions; SLEEP sleeps at plan time, cut short by KILL.
 
 WITH RECURSIVE materializes each recursive CTE step by step into a
 scratch table (``_run_recursive_with``); EXPLAIN renders the plan with
@@ -89,11 +99,15 @@ from __future__ import annotations
 import copy
 import dataclasses
 import datetime
+import hashlib
 import itertools
+import json
 import math
 import operator
+import os
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -128,19 +142,21 @@ from tidb_tpu_torch.planner.logical import ExprBinder, Schema, _display_name, _s
 from tidb_tpu_torch.planner.physical import PhysicalExecutor, StaleWidthsError
 from tidb_tpu_torch.planner.streamed import try_streamed_sort
 from tidb_tpu_torch.session.constraints import ConstraintMixin
-from tidb_tpu_torch.session.ddl import DDLMixin, unported_alter
+from tidb_tpu_torch.session.ddl import PARTITION_WRITES, DDLMixin
 from tidb_tpu_torch.stats import analyze_table
 from tidb_tpu_torch.stats.handle import maybe_auto_analyze
 from tidb_tpu_torch.storage import Catalog, Table, TableSchema
 from tidb_tpu_torch.storage import scan as _scan
 from tidb_tpu_torch.storage.catalog import unported_virtual_table
 from tidb_tpu_torch.storage.locks import DeadlockError, next_txn_id
+from tidb_tpu_torch.storage.sequence import Sequence
 from tidb_tpu_torch.storage.table import set_gc_life
 from tidb_tpu_torch.tools.dump import create_table_sql
 from tidb_tpu_torch.utils import collate as _coll
 from tidb_tpu_torch.utils.collate import CHARSET_DEFAULTS
 from tidb_tpu_torch.utils.checkeval import check_columns
-from tidb_tpu_torch.utils.metrics import sql_digest
+from tidb_tpu_torch.utils.metrics import record_digest, seen_digests, sql_digest
+from tidb_tpu_torch.utils import sqlkiller as _sk
 from tidb_tpu_torch.utils.sqlkiller import SQLKiller
 from tidb_tpu_torch.utils.sysvar import SysVars
 
@@ -149,10 +165,14 @@ _DML = (ast.Insert, ast.Update, ast.Delete)
 
 #: statements this slice leaves out, by the name the error gives them
 _UNPORTED = {
-    ast.CreateSequence: "sequences (CREATE SEQUENCE)",
-    ast.DropSequence: "sequences (DROP SEQUENCE)",
     ast.LoadData: "LOAD DATA",
+    ast.AdminStmt: "ADMIN statements (ADMIN CHECK TABLE, ...)",
+    ast.BackupRestore: "BACKUP and RESTORE (persistence and BR)",
 }
+
+#: the advisory-lock builtins, folded before planning
+_USER_LOCK_FUNCS = ("get_lock", "release_lock", "is_free_lock", "is_used_lock",
+                    "release_all_locks")
 
 # process-unique names of recursive CTEs' scratch tables: the scratch
 # database is shared by every session of a catalog
@@ -168,6 +188,68 @@ def statement_lock(device) -> threading.RLock:
     ``execute`` again inside it."""
     with _STATEMENT_LOCKS_GUARD:
         return _STATEMENT_LOCKS.setdefault(str(device), threading.RLock())
+
+
+class _SessionCatalog:
+    """A session's view of its catalog: its LOCAL TEMPORARY tables shadow
+    the catalog's tables by name for this session only, and every other
+    attribute (users, sysvars, locks, sequences, the databases) is the
+    shared catalog's. Temporary tables stay out of ``tables()`` (SHOW
+    TABLES, information_schema) but win ``table()`` and ``has_table()``."""
+
+    __slots__ = ("_base", "_temp")
+
+    def __init__(self, base):
+        object.__setattr__(self, "_base", base)
+        object.__setattr__(self, "_temp", {})
+
+    def __getattr__(self, n):
+        return getattr(object.__getattribute__(self, "_base"), n)
+
+    def __setattr__(self, n, v):
+        setattr(object.__getattribute__(self, "_base"), n, v)
+
+    def table(self, db: str, name: str):
+        t = self._temp.get((db.lower(), name.lower()))
+        return t if t is not None else self._base.table(db, name)
+
+    def has_table(self, db: str, name: str) -> bool:
+        return (db.lower(), name.lower()) in self._temp or self._base.has_table(db, name)
+
+    def create_temp_table(self, db: str, name: str, schema) -> Table:
+        db, name = db.lower(), name.lower()
+        if db not in self._base._dbs:
+            raise ValueError(f"unknown database {db!r}")
+        if (db, name) in self._temp:
+            raise ValueError(f"temporary table {name!r} exists")
+        t = self._temp[(db, name)] = Table(name, schema)
+        # plans are keyed by the schema version: a plan over the
+        # shadowed table must not serve the temporary one, nor the reverse
+        self._base.schema_version += 1
+        return t
+
+    def drop_table(self, db: str, name: str, if_exists: bool = False,
+                   temporary_only: bool = False) -> None:
+        key = (db.lower(), name.lower())
+        if key in self._temp:
+            del self._temp[key]
+            self._base.schema_version += 1
+            return
+        if temporary_only:
+            if if_exists:
+                return
+            raise ValueError(f"unknown temporary table {db}.{name}")
+        self._base.drop_table(db, name, if_exists)
+
+
+def _release_session_locks(base_catalog, conn_id: int) -> None:
+    """A collected session's advisory locks are released, as a closed
+    MySQL connection's are."""
+    cv = base_catalog._user_locks_cv
+    with cv:
+        for name in [k for k, v in base_catalog._user_locks.items() if v[0] == conn_id]:
+            del base_catalog._user_locks[name]
+        cv.notify_all()
 
 
 @dataclasses.dataclass
@@ -256,14 +338,17 @@ def _refs_table(node, name: str) -> bool:
     return False
 
 
-def _render_plan(plan, depth: int, out: List[str], catalog=None) -> None:
+def _render_plan(plan, depth: int, out: List[str], catalog=None, resolver=None) -> None:
     """EXPLAIN's lines: one per node, indented by depth, with the
     estimated rows ``est_rows`` annotated and, for a Selection over a
     Scan, the access path the executor takes over the catalog's tables
-    (the JAX package's ``_render_plan``; partition pruning waits for
-    partitions)."""
+    and the partitions it keeps (the JAX package's ``_render_plan``).
+    `resolver` gives the (table, version) the run would read, so a pinned
+    or stale reader's EXPLAIN prunes with the defs of its version."""
     from tidb_tpu_torch.planner import logical as L
-    from tidb_tpu_torch.planner.physical import _extract_index_merge, _extract_pk_range
+    from tidb_tpu_torch.planner.physical import (
+        _extract_index_merge, _extract_pk_range, _prune_partitions, partition_label,
+    )
 
     pad = "  " * depth
     name = type(plan).__name__
@@ -273,12 +358,12 @@ def _render_plan(plan, depth: int, out: List[str], catalog=None) -> None:
     elif isinstance(plan, L.Selection):
         detail = f" pred={plan.predicate!r}"
         if catalog is not None and isinstance(plan.child, L.Scan):
-            def resolver(db, tb):
+            def current(db, tb):
                 return catalog.table(db, tb), 0
 
-            r = _extract_pk_range(plan.predicate, plan.child, resolver)
+            r = _extract_pk_range(plan.predicate, plan.child, current)
             mr = None if r is not None else _extract_index_merge(
-                plan.predicate, plan.child, resolver)
+                plan.predicate, plan.child, current)
             if r is not None:
                 col, lo, hi = r
                 detail += f" access=IndexRangeScan({col} in [{lo}, {hi}])"
@@ -288,6 +373,10 @@ def _render_plan(plan, depth: int, out: List[str], catalog=None) -> None:
 
                 spans = " | ".join(f"{c}[{b(lo, '-inf')},{b(hi, 'inf')}]" for c, lo, hi in mr)
                 detail += f" access=IndexMerge(union: {spans})"
+            res = resolver or (lambda db, tb: (catalog.table(db, tb), catalog.table(db, tb).version))
+            pp = _prune_partitions(plan.predicate, plan.child, res)
+            if pp is not None:
+                detail += partition_label(*res(plan.child.db, plan.child.table), pp)
     elif isinstance(plan, L.Aggregate):
         detail = (f" groups={[n for n, _ in plan.group_exprs]}"
                   f" aggs={[f'{f}({n})' for n, f, _, _ in plan.aggs]}")
@@ -308,9 +397,9 @@ def _render_plan(plan, depth: int, out: List[str], catalog=None) -> None:
     for attr in ("child", "left", "right"):
         c = getattr(plan, attr, None)
         if c is not None:
-            _render_plan(c, depth + 1, out, catalog)
+            _render_plan(c, depth + 1, out, catalog, resolver)
     for c in getattr(plan, "children", []) or []:
-        _render_plan(c, depth + 1, out, catalog)
+        _render_plan(c, depth + 1, out, catalog, resolver)
 
 
 def _present(v, t: Optional[SQLType]):
@@ -358,7 +447,10 @@ class Session(DDLMixin, ConstraintMixin):
         device=None,
         user: str = "root",
     ):
-        self.catalog = catalog if catalog is not None else Catalog()
+        base = catalog if catalog is not None else Catalog()
+        if isinstance(base, _SessionCatalog):
+            base = base._base  # one overlay per session, never stacked
+        self.catalog = _SessionCatalog(base)
         self.db = db
         self.user = user
         self.device = resolve_device(device)
@@ -405,6 +497,10 @@ class Session(DDLMixin, ConstraintMixin):
         # and whether tidb_read_staleness applies (a top-level read)
         self._stmt_as_of: Dict[tuple, float] = {}
         self._stale_ok = False
+        # LASTVAL() per (db, sequence): this session's last NEXTVAL
+        self._seq_lastval: Dict[tuple, int] = {}
+        # its advisory locks (GET_LOCK) go with the session
+        weakref.finalize(self, _release_session_locks, base, self.conn_id)
 
     def execute(self, sql: str) -> Result:
         res = Result([], [])
@@ -449,6 +545,7 @@ class Session(DDLMixin, ConstraintMixin):
                 res.elapsed_s = time.perf_counter() - t0
         finally:
             release()
+        record_digest(getattr(s, "_source_sql", None) or type(s).__name__)
         return res
 
     def _execute_stmt(self, s) -> Result:
@@ -487,6 +584,9 @@ class Session(DDLMixin, ConstraintMixin):
             self._warnings = []
         limit_ms = int(self.vars.get("max_execution_time") or 0)
         self.killer.clear(deadline=time.monotonic() + limit_ms / 1000.0 if limit_ms else 0.0)
+        # SLEEP polls this session's killer through the thread-local, and
+        # lets the statement lock go while it sleeps
+        _sk.set_current(self.killer, statement_lock(self.device))
         self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
         self._stale_ok = isinstance(s, _READS)
         inner = s.stmt if isinstance(s, ast.Explain) else s
@@ -513,13 +613,21 @@ class Session(DDLMixin, ConstraintMixin):
         if isinstance(s, ast.CreateTable):
             return self._run_create_table(s)
         if isinstance(s, ast.DropTable):
-            if s.temporary:
-                raise NotImplementedError("temporary tables are not ported yet")
+            # a temporary table first, then the shared one
             db = s.db or self.db
             t = self.catalog.table(db, s.name) if self.catalog.has_table(db, s.name) else None
-            self.catalog.drop_table(db, s.name, s.if_exists)
+            self.catalog.drop_table(db, s.name, s.if_exists, temporary_only=s.temporary)
             if t is not None:
                 _scan.release(t)
+            return Result([], [])
+        if isinstance(s, ast.CreateSequence):
+            seq = Sequence(s.name.lower(), start=s.start, increment=s.increment,
+                           minvalue=s.minvalue, maxvalue=s.maxvalue, cycle=s.cycle,
+                           cache=s.cache)
+            self.catalog.create_sequence(s.db or self.db, s.name, seq, s.if_not_exists)
+            return Result([], [])
+        if isinstance(s, ast.DropSequence):
+            self.catalog.drop_sequence(s.db or self.db, s.name, s.if_exists)
             return Result([], [])
         if isinstance(s, ast.TruncateTable):
             # the rows go first, then the children's ON DELETE actions
@@ -657,10 +765,6 @@ class Session(DDLMixin, ConstraintMixin):
         what = _UNPORTED.get(type(s))
         if what is not None:
             raise NotImplementedError(f"{what} is not ported yet")
-        for spec in s.specs if isinstance(s, ast.MultiAlter) else [s]:
-            why = unported_alter(spec)
-            if why is not None:
-                raise NotImplementedError(why)
         if isinstance(s, _READS + _DML + (ast.CreateTable, ast.Explain)):
             why = self._unported_clause(s)
             if why is not None:
@@ -796,6 +900,9 @@ class Session(DDLMixin, ConstraintMixin):
                 self._check_priv("create", (ddb or self.db).lower())
         elif isinstance(s, (ast.CreateIndex, ast.DropIndex)):
             self._check_priv("index", (s.db or self.db).lower(), s.table.lower())
+        elif isinstance(s, (ast.CreateSequence, ast.DropSequence)):
+            self._check_priv("create" if isinstance(s, ast.CreateSequence) else "drop",
+                             (s.db or self.db).lower())
         elif isinstance(s, (ast.CreateUser, ast.DropUser, ast.GrantStmt, ast.CreateBinding)):
             self._require_super()
 
@@ -809,6 +916,21 @@ class Session(DDLMixin, ConstraintMixin):
             return node
         if isinstance(node, ast.UserVarRef):
             return ast.Const(self.user_vars.get(node.name))
+        op = node.op.lower() if isinstance(node, ast.Call) else None
+        if op in ("nextval", "lastval", "setval"):
+            # once per statement here: a SELECT over many rows gets one
+            # value (INSERT ... VALUES advances per row, ``_const_value``)
+            return ast.Const(self._seq_func(node))
+        if op in _USER_LOCK_FUNCS:
+            return ast.Const(self._user_lock_func(node))
+        if op == "random_bytes":
+            # once per statement, as the JAX session folds it
+            n = node.args[0].value if node.args and isinstance(node.args[0], ast.Const) else 1
+            if not (1 <= int(n) <= 1024):
+                raise ValueError("Data length out of range for random_bytes (1..1024)")
+            return ast.Const(os.urandom(int(n)).decode("latin-1"))
+        if op in ("tidb_encode_sql_digest", "tidb_decode_sql_digests"):
+            return ast.Const(self._digest_func(op, node.args[0] if node.args else None))
         if isinstance(node, ast.Call) and not node.args:
             op = node.op.lower()
             if op == "last_insert_id":
@@ -840,6 +962,118 @@ class Session(DDLMixin, ConstraintMixin):
         if isinstance(node, tuple):
             return tuple(self._resolve_session_funcs(x) for x in node)
         return node
+
+    def _seq_func(self, e):
+        """NEXTVAL, LASTVAL or SETVAL of a sequence; LASTVAL is this
+        session's last NEXTVAL of it."""
+        op = e.op.lower()
+        a = e.args[0] if e.args else None
+        if isinstance(a, ast.Name):
+            db, name = (a.table or self.db), a.column
+        elif isinstance(a, ast.Const) and isinstance(a.value, str):
+            db, name = self.db, a.value
+        else:
+            raise ValueError(f"{op.upper()} needs a sequence name")
+        seq = self.catalog.sequence(db, name)
+        key = (db.lower(), name.lower())
+        if op == "nextval":
+            v = self._seq_lastval[key] = seq.nextval()
+            return v
+        if op == "lastval":
+            return self._seq_lastval.get(key)
+        if len(e.args) < 2:
+            raise ValueError("SETVAL needs (sequence, value)")
+        return seq.setval(self._const_value(e.args[1]))
+
+    def _user_lock_func(self, e):
+        """GET_LOCK, RELEASE_LOCK, IS_FREE_LOCK, IS_USED_LOCK and
+        RELEASE_ALL_LOCKS: named advisory locks shared by every session
+        of the catalog, re-entrant per session and released when the
+        session is collected. A GET_LOCK wait ends at its timeout or at a
+        KILL of its statement. It lets the device's statement lock go
+        while it waits, so that the holder's RELEASE_LOCK can run."""
+        op = e.op.lower()
+        base = self.catalog._base
+        reg, cv = base._user_locks, base._user_locks_cv
+
+        def argval(i):
+            a = e.args[i]
+            if isinstance(a, ast.Const):
+                return a.value
+            if isinstance(a, ast.Name):
+                return a.column
+            raise ValueError(f"{op.upper()} needs literal arguments")
+
+        if op == "release_all_locks":
+            with cv:
+                n = 0
+                for name in [k for k, v in reg.items() if v[0] == self.conn_id]:
+                    n += reg.pop(name)[1]
+                cv.notify_all()
+            return n
+        name = str(argval(0)).lower()
+        if op == "get_lock":
+            timeout = float(argval(1)) if len(e.args) > 1 else 0.0
+            deadline = time.monotonic() + max(timeout, 0.0)
+
+            def take() -> bool:
+                holder = reg.get(name)
+                if holder is not None and holder[0] != self.conn_id:
+                    return False
+                if holder is None:
+                    reg[name] = [self.conn_id, 1]
+                else:
+                    holder[1] += 1
+                return True
+
+            with cv:
+                if take():
+                    return 1
+            # a wait: the statement lock is let go first and taken back
+            # after the registry's (every statement takes it first)
+            with _sk.statement_lock_released(), cv:
+                while not take():
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return 0
+                    self.killer.check()
+                    cv.wait(min(remaining, 0.1))
+                return 1
+        with cv:
+            holder = reg.get(name)
+            if op == "release_lock":
+                if holder is None:
+                    return None  # never held
+                if holder[0] != self.conn_id:
+                    return 0  # another session's
+                holder[1] -= 1
+                if holder[1] <= 0:
+                    del reg[name]
+                    cv.notify_all()
+                return 1
+            if op == "is_free_lock":
+                return 0 if holder is not None else 1
+            return holder[0] if holder is not None else None  # is_used_lock
+
+    def _digest_func(self, op: str, a0):
+        """TIDB_ENCODE_SQL_DIGEST(text): the sha256 of the text's
+        normalized form. TIDB_DECODE_SQL_DIGESTS(json list): each digest's
+        normalized text among the statements run in this process, or
+        NULL."""
+        if not isinstance(a0, ast.Const):
+            raise ValueError(f"{op.upper()} supports constant arguments only")
+        if a0.value is None:
+            return None
+        if op == "tidb_encode_sql_digest":
+            return hashlib.sha256(sql_digest(str(a0.value)).encode()).hexdigest()
+        try:
+            digests = json.loads(str(a0.value))
+        except Exception:
+            return None
+        if not isinstance(digests, list):
+            return None
+        by_digest = {hashlib.sha256(t.encode()).hexdigest(): t for t in seen_digests()}
+        return json.dumps([by_digest.get(str(d)) for d in digests])
 
     # -- SHOW ----------------------------------------------------------
     def _run_show(self, s: ast.Show) -> Result:
@@ -967,8 +1201,12 @@ class Session(DDLMixin, ConstraintMixin):
                      for i, cn in enumerate(t.indexes[iname], 1)]
             return Result(["Table", "Key_name", "Seq_in_index", "Column_name", "Non_unique"],
                           rows)
+        # a UNIQUE index's leading column is UNI, any other index's MUL
+        uni = {t.indexes[i][0] for i in t.unique_indexes if t.indexes.get(i)}
+        mul = {cols[0] for i, cols in t.indexes.items() if cols and i not in t.unique_indexes}
         return Result(["Field", "Type", "Null", "Key", "Default"], [
-            (n, repr(ty).lower(), "NO" if n in pk else "YES", "PRI" if n in pk else "",
+            (n, repr(ty).lower(), "NO" if n in pk else "YES",
+             "PRI" if n in pk else "UNI" if n in uni else "MUL" if n in mul else "",
              None if t.defaults.get(n) is None else str(t.defaults[n]))
             for n, ty in t.schema.columns
         ])
@@ -1095,7 +1333,8 @@ class Session(DDLMixin, ConstraintMixin):
             return Result(["plan"], [(line,) for line in lines])
         est_rows(plan, self.catalog)  # annotates .est on every node
         lines: List[str] = []
-        _render_plan(plan, 0, lines, self.catalog)
+        # pruned with the versions the run would read (pins, stale reads)
+        _render_plan(plan, 0, lines, self.catalog, resolver=self._resolve_table_for_read)
         return Result(["plan"], [(line,) for line in lines])
 
     # -- recursive CTEs ------------------------------------------------
@@ -1522,6 +1761,8 @@ class Session(DDLMixin, ConstraintMixin):
             shadow.fk_actions = dict(t.fk_actions)
             shadow.fk_update_actions = dict(t.fk_update_actions)
             shadow.generated = list(t.generated)
+            # the snapshot's blocks were tagged under the snapshot's defs
+            shadow.partition = t.partition_defs_at(pinned)
             # the uniqueness and range indexes are keyed by block uids:
             # the shadow's blocks are the snapshot's, so they carry over
             shadow._key_cache = dict(t._key_cache)
@@ -1560,6 +1801,12 @@ class Session(DDLMixin, ConstraintMixin):
             tables = self._dml_lock_tables(s)
         elif isinstance(s, (ast.TruncateTable, ast.MultiAlter)):
             tables = [(s.db or self.db, s.name)]
+        elif isinstance(s, ast.AlterTable) and s.action in PARTITION_WRITES:
+            if self._txn is not None:
+                return lambda: None  # refused by the statement itself
+            tables = [(s.db or self.db, s.name)]
+            if s.exchange is not None:
+                tables.append((s.exchange[0] or s.db or self.db, s.exchange[1]))
         elif isinstance(s, _READS):
             tables = self._for_update_tables(s)
             if tables and self._txn is not None and self._txn["read_only"]:
@@ -1801,13 +2048,8 @@ class Session(DDLMixin, ConstraintMixin):
     # -- DDL -----------------------------------------------------------
     def _run_create_table(self, s: ast.CreateTable) -> Result:
         db = s.db or self.db
-        for what, present in (
-            ("temporary tables", s.temporary),
-            ("PARTITION BY", s.partition is not None),
-            ("TTL", s.ttl is not None),
-        ):
-            if present:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if s.ttl is not None:
+            raise NotImplementedError("TTL is not ported yet")
         if s.as_query is not None:
             return self._run_ctas(s, db)
         if s.like is not None:
@@ -1819,9 +2061,16 @@ class Session(DDLMixin, ConstraintMixin):
             # rendered DDL, which carries no ENUM, SET or JSON domain, so
             # neither does this
             pk = src.schema.primary_key
-            t = self.catalog.create_table(db, s.name, TableSchema(
+            schema = TableSchema(
                 list(src.schema.columns), primary_key=list(pk) if pk else None,
-                not_null=tuple(src.schema.not_null)))
+                not_null=tuple(src.schema.not_null))
+            if s.temporary:
+                if src.partition is not None:
+                    raise ValueError("temporary tables do not support partitioning/TTL")
+                t = self.catalog.create_temp_table(db, s.name, schema)
+            else:
+                t = self.catalog.create_table(db, s.name, schema)
+                t.partition = src.partition
             t.autoinc_col = src.autoinc_col
             t.defaults = dict(src.defaults)
             t.checks = list(src.checks)
@@ -1864,9 +2113,18 @@ class Session(DDLMixin, ConstraintMixin):
                 if rcol not in pt.schema.names:
                     raise ValueError(f"FOREIGN KEY references unknown column {rdb}.{rtbl}.{rcol}")
             fks.append((nm, col, rdb, rtbl, rcol))
-        existed = s.if_not_exists and self.catalog.has_table(db, s.name)
-        t = self.catalog.create_table(db, s.name, schema, s.if_not_exists)
+        part_meta = None
+        if s.partition is not None:
+            part_meta = self._encode_partition(schema, s.partition)
+        if s.temporary:
+            return self._create_temporary(s, db, schema, auto, gen_meta, fks)
+        # a temporary table shadowing the name neither blocks the shared
+        # table nor lends it its identity
+        base = self.catalog._base
+        existed = s.if_not_exists and base.has_table(db, s.name)
+        t = base.create_table(db, s.name, schema, s.if_not_exists)
         if not existed:
+            t.partition = part_meta
             for iname, icols, *uq in s.indexes:
                 self._add_index(t, iname, icols, unique=bool(uq and uq[0]))
             if auto:
@@ -1882,6 +2140,31 @@ class Session(DDLMixin, ConstraintMixin):
             t.generated = gen_meta
             # the reverse FOREIGN KEY map is keyed by the schema version
             self.catalog.schema_version += 1
+        return Result([], [])
+
+    def _create_temporary(self, s: ast.CreateTable, db: str, schema, auto, gen_meta, fks) -> Result:
+        """CREATE TEMPORARY TABLE: a table of this session only, which
+        shadows a shared table of its name. No partitions or FOREIGN KEYs."""
+        if s.partition is not None:
+            raise ValueError("temporary tables do not support partitioning/TTL")
+        if fks:
+            raise ValueError("temporary tables do not support FOREIGN KEYs")
+        db_l = db.lower()
+        if db_l not in self.catalog._dbs:
+            # IF NOT EXISTS never excuses an unknown database
+            raise ValueError(f"unknown database {db_l!r}")
+        if (db_l, s.name.lower()) in self.catalog._temp:
+            if not s.if_not_exists:
+                raise ValueError(f"temporary table {s.name!r} exists")
+            return Result([], [])
+        t = self.catalog.create_temp_table(db_l, s.name, schema)
+        for iname, icols, *uq in s.indexes:
+            self._add_index(t, iname, icols, unique=bool(uq and uq[0]))
+        if auto:
+            t.autoinc_col = auto[0].name.lower()
+        t.checks = [(nm, txt) for nm, txt, _e in s.checks]
+        t.defaults = {c.name.lower(): c.default for c in s.columns if c.default is not None}
+        t.generated = gen_meta
         return Result([], [])
 
     def _run_create_view(self, s: ast.CreateView) -> Result:
@@ -1908,10 +2191,14 @@ class Session(DDLMixin, ConstraintMixin):
         return Result([], [])
 
     def _run_ctas(self, s: ast.CreateTable, db: str) -> Result:
-        """CREATE TABLE ... AS SELECT: the schema comes from the query.
-        The existence check runs first, so a large query does not run
-        only to be thrown away."""
-        if self.catalog.has_table(db, s.name):
+        """CREATE [TEMPORARY] TABLE ... AS SELECT: the schema comes from
+        the query. The existence check runs first, so a large query does
+        not run only to be thrown away; a shared table's is made in the
+        shared catalog (a temporary table of its name neither blocks it
+        nor receives its rows)."""
+        base = self.catalog._base
+        if ((db.lower(), s.name.lower()) in self.catalog._temp if s.temporary
+                else base.has_table(db, s.name)):
             if s.if_not_exists:
                 return Result([], [])
             raise ValueError(f"table {s.name} exists")
@@ -1929,7 +2216,10 @@ class Session(DDLMixin, ConstraintMixin):
                 n = f"col_{len(cols)}"
             seen.add(n)
             cols.append((n, typ if typ is not None else INT64))
-        t = self.catalog.create_table(db, s.name, TableSchema(cols))
+        if s.temporary:
+            t = self.catalog.create_temp_table(db, s.name, TableSchema(cols))
+        else:
+            t = base.create_table(db, s.name, TableSchema(cols))
         if res.rows:
             t.append_rows([list(r) for r in res.rows])
         return Result([], [], affected=len(res.rows))
@@ -2042,7 +2332,8 @@ class Session(DDLMixin, ConstraintMixin):
         if isinstance(e, ast.Call) and e.op == "neg" and isinstance(e.args[0], ast.Const):
             return -e.args[0].value
         if isinstance(e, ast.Call) and e.op.lower() in ("nextval", "lastval", "setval"):
-            raise NotImplementedError("sequences (NEXTVAL) are not ported yet")
+            # per row: INSERT ... VALUES (nextval(s)), (nextval(s)) advances twice
+            return self._seq_func(e)
         raise ValueError("INSERT VALUES must be literals")
 
     # -- conflict keys: PRIMARY KEY and UNIQUE indexes -----------------
@@ -2575,7 +2866,8 @@ class Session(DDLMixin, ConstraintMixin):
                 self._reject_generated_targets(t, sets, "SET")
                 saved.append((t, list(t.blocks()), dict(t.dictionaries), len(handles)))
                 if set(sets) & set(self._unique_key_cols(t)) or any(
-                        t.schema.types[c].kind == Kind.STRING for c in sets):
+                        t.schema.types[c].kind == Kind.STRING for c in sets) or (
+                        t.partition is not None and t.partition[1] in sets):
                     new = materialize_rows(
                         Batch({c.internal: batch.cols[c.internal] for c in vcols},
                               batch.row_valid),
@@ -2722,9 +3014,13 @@ class Session(DDLMixin, ConstraintMixin):
         rows are decoded, their generated columns recomputed and their
         CHECKs and FOREIGN KEYs checked (``_install_columnar``). Every
         stored row passed those checks when it was written, so the rows
-        and errors are the rewrite's."""
+        and errors are the rewrite's. A SET of the partitioning column
+        takes the rewrite, whose append routes each row to its new
+        partition (the JAX session's columnar form keeps the old tag)."""
         types = t.schema.types
         if any(c not in types for c in sets):
+            return None
+        if t.partition is not None and t.partition[1] in sets:
             return None
         str_codes = {}
         for c, e in sets.items():

@@ -11,18 +11,21 @@ conflict check and install run.
 
 Views are stored as their SELECT text and column list per database
 (``create_view``, ``drop_view``, ``view_def``); the logical planner
-expands a view reference by planning that text. A table a FOREIGN KEY
+expands a view reference by planning that text. Sequences
+(``create_sequence``, ``sequence``) share the namespace of tables and
+views. A table a FOREIGN KEY
 references cannot be dropped, nor the database holding it while a child
 outside it remains.
 
 information_schema: ``tables``, ``columns``, ``schemata``,
 ``statistics``, ``table_constraints``, ``key_column_usage``,
-``referential_constraints`` and ``views`` are built from the catalog as
-the JAX package builds them, memoized per schema version and data
-fingerprint (a fresh table per statement would carry a fresh uid, and
-the executor would recompile its plan and re-copy its columns every
-time). The tables of features the port lacks (sequences, partitions)
-and the diagnostic tables refuse by name.
+``referential_constraints``, ``views``, ``sequences`` and
+``partitions`` (one row per partition, its rows counted per
+``part_id``) are built from the catalog as the JAX package builds them,
+memoized per schema version and data fingerprint (a fresh table per
+statement would carry a fresh uid, and the executor would recompile its
+plan and re-copy its columns every time). The diagnostic tables refuse
+by name.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import threading
 import weakref
 from typing import Dict, List
 
-from tidb_tpu_torch.dtypes import INT64, STRING
+from tidb_tpu_torch.dtypes import INT64, STRING, Kind, days_to_date
 from tidb_tpu_torch.storage.locks import LockManager
 from tidb_tpu_torch.storage.table import Table, TableSchema
 from tidb_tpu_torch.utils.privilege import UserStore
@@ -44,6 +47,8 @@ class Catalog:
         self._dbs: Dict[str, Dict[str, Table]] = {"test": {}}
         # views per database: name -> (SELECT text, column names or None)
         self._views: Dict[str, Dict[str, tuple]] = {"test": {}}
+        # sequences per database: name -> storage.sequence.Sequence
+        self._seqs: Dict[str, dict] = {}
         # (schema version, (parent db, parent table) -> [child FK]): the
         # reverse FOREIGN KEY map, built once per schema version
         self._fk_child_cache = None
@@ -70,6 +75,10 @@ class Catalog:
         self._is_table_cache: Dict[str, tuple] = {}
         # SQL bindings: statement digest -> {"for_sql", "using_sql", "hints"}
         self.bindings: Dict[str, dict] = {}
+        # advisory locks (GET_LOCK): name -> [holder conn_id, depth],
+        # waited for on the condition
+        self._user_locks: Dict[str, list] = {}
+        self._user_locks_cv = threading.Condition()
 
     def create_database(self, name: str, if_not_exists: bool = False) -> None:
         name = name.lower()
@@ -113,6 +122,8 @@ class Catalog:
                 raise ValueError(f"table {name!r} exists")
             if name in self._views.get(db, {}):
                 raise ValueError(f"view {name!r} exists")
+            if name in self._seqs.get(db, {}):
+                raise ValueError(f"sequence {name!r} exists")
             t = Table(name, schema)
             self._dbs[db][name] = t
             self.schema_version += 1
@@ -196,6 +207,8 @@ class Catalog:
                 raise ValueError(f"unknown database {db!r}")
             if name in self._dbs[db]:
                 raise ValueError(f"table {name!r} exists")
+            if name in self._seqs.get(db, {}):
+                raise ValueError(f"sequence {name!r} exists")
             if name in self._views[db] and not or_replace:
                 raise ValueError(f"view {name!r} exists")
             self._views[db][name] = (sql, tuple(c.lower() for c in columns) if columns else None)
@@ -245,6 +258,38 @@ class Catalog:
             return []
         finally:
             self._planning_view_cols = False
+
+    # -- sequences ---------------------------------------------------------
+    def create_sequence(self, db: str, name: str, seq, if_not_exists: bool = False):
+        db, name = db.lower(), name.lower()
+        with self._lock:
+            if db not in self._dbs:
+                raise ValueError(f"unknown database {db!r}")
+            if name in self._dbs[db] or name in self._views.get(db, {}):
+                raise ValueError(f"table or view {name!r} exists")
+            if name in self._seqs.setdefault(db, {}):
+                if if_not_exists:
+                    return self._seqs[db][name]
+                raise ValueError(f"sequence {name!r} exists")
+            self._seqs[db][name] = seq
+            self.schema_version += 1
+            return seq
+
+    def drop_sequence(self, db: str, name: str, if_exists: bool = False) -> None:
+        db, name = db.lower(), name.lower()
+        with self._lock:
+            if name not in self._seqs.get(db, {}):
+                if if_exists:
+                    return
+                raise ValueError(f"unknown sequence {db}.{name}")
+            del self._seqs[db][name]
+            self.schema_version += 1
+
+    def sequence(self, db: str, name: str):
+        s = self._seqs.get(db.lower(), {}).get(name.lower())
+        if s is None:
+            raise ValueError(f"unknown sequence {db}.{name}")
+        return s
 
     # -- FOREIGN KEYs --------------------------------------------------------
     def fk_children(self, db: str, name: str) -> list:
@@ -381,6 +426,36 @@ class Catalog:
             schema = TableSchema([("table_schema", STRING), ("table_name", STRING),
                                   ("view_definition", STRING), ("definer", STRING)])
             rows = [(db, vn, v[0], "root") for db, vn, v in views]
+        elif name == "sequences":
+            # "start_value", not START: START is reserved in the parser
+            schema = TableSchema([("sequence_schema", STRING), ("sequence_name", STRING),
+                                  ("start_value", INT64), ("increment", INT64),
+                                  ("min_value", INT64), ("max_value", INT64),
+                                  ("cycle", INT64), ("cache", INT64)])
+            with self._lock:
+                metas = [(db, sn, self._seqs[db][sn].meta()) for db in sorted(self._seqs)
+                         for sn in sorted(self._seqs[db])]
+            rows = [(db, sn, m["start"], m["increment"], m["minvalue"], m["maxvalue"],
+                     int(m["cycle"]), m["cache"]) for db, sn, m in metas]
+        elif name == "partitions":
+            schema = TableSchema([("table_schema", STRING), ("table_name", STRING),
+                                  ("partition_name", STRING),
+                                  ("partition_ordinal_position", INT64),
+                                  ("partition_method", STRING),
+                                  ("partition_expression", STRING),
+                                  ("partition_description", STRING), ("table_rows", INT64)])
+            rows = []
+            for db, tn, t in tables:
+                if t.partition is None:
+                    rows.append((db, tn, None, None, None, None, None, t.nrows))
+                    continue
+                kind, pcol, _spec = t.partition
+                per: Dict[object, int] = {}
+                for b in t.blocks():
+                    per[b.part_id] = per.get(b.part_id, 0) + b.nrows
+                rows += [(db, tn, pname, i + 1, kind.upper(), f"`{pcol}`",
+                          _partition_description(t, i), per.get(i, 0))
+                         for i, pname in enumerate(t.partition_names())]
         else:  # schemata
             schema = TableSchema([("schema_name", STRING)])
             with self._lock:
@@ -391,13 +466,34 @@ class Catalog:
         return t
 
 
+def _partition_description(t, i: int):
+    """information_schema.partitions' description of partition i: its
+    RANGE bound or LIST values as MySQL prints them; NULL for HASH."""
+    kind, pcol, spec = t.partition
+    ptype = t.schema.types.get(pcol)
+
+    def fmt(v):
+        if v is None:
+            return "NULL"
+        if ptype is not None and ptype.kind == Kind.DATE:
+            return f"'{days_to_date(int(v))}'"
+        if ptype is not None and ptype.kind == Kind.DECIMAL:
+            return str(int(v) / 10 ** ptype.scale)
+        return str(v)
+
+    if kind == "hash":
+        return None
+    if kind == "list":
+        return ",".join(fmt(v) for v in spec[i][1])
+    return "MAXVALUE" if spec[i][1] is None else fmt(spec[i][1])
+
+
 _IS_BUILT = ("tables", "columns", "schemata", "statistics", "table_constraints",
-             "key_column_usage", "referential_constraints", "views")
+             "key_column_usage", "referential_constraints", "views", "sequences",
+             "partitions")
 
 #: information_schema tables the port refuses, with the feature they wait for
 IS_UNPORTED = {
-    "sequences": "sequences are not ported",
-    "partitions": "partitions are not ported",
     **{n: "a diagnostic table: observability is not ported" for n in (
         "slow_query", "statements_summary", "statements_summary_history", "metrics",
         "top_sql", "tpu_engine", "memory_usage", "memory_usage_ops_history",

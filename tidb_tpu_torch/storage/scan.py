@@ -2,9 +2,12 @@
 
 Counterpart of tidb_tpu/storage/scan.py. Only the referenced columns are
 copied to the device, each padded to the table's capacity tile, and each
-is cached there keyed by (table, version, column, capacity, device): a
-warm run copies nothing host->device, and queries over overlapping
-column sets share one copy of each column. Host->device bytes are
+is cached there keyed by (table, version, column, capacity, device,
+partitions): a warm run copies nothing host->device, and queries over
+overlapping column sets share one copy of each column. A pruned scan
+copies only the kept partitions' blocks (``partitions``); each pruned set
+is an entry of its own beside the whole table's, and the sets of one
+version never evict each other. Host->device bytes are
 counted in ``chunk.TRANSFERS``. The cache holds at most
 ``_SCAN_CACHE_MAX`` entries; ``release`` drops columns whose room a
 larger statement needs (the streamed aggregation's sizing) or that no
@@ -25,8 +28,9 @@ import torch
 from tidb_tpu_torch.chunk import TRANSFERS, Batch, DevCol, pad_capacity, resolve_device
 from tidb_tpu_torch.storage.table import Table
 
-# (table uid, version, column, capacity, device) -> DevCol, plus one
-# row-validity mask per (table uid, version, capacity, device).
+# (table uid, version, column, capacity, device, partitions) -> DevCol,
+# plus one row-validity mask per (table uid, version, capacity, device,
+# partitions); partitions is the sorted tuple of kept ids, None for all.
 _scan_cache: "OrderedDict[tuple, DevCol]" = OrderedDict()
 _SCAN_CACHE_MAX = 256
 #: the cache's column name for a table's row-validity mask
@@ -52,12 +56,14 @@ def _cached(table: Table, key: tuple, make):
     return value
 
 
-def _column(table: Table, v: int, name: str, cap: int, device) -> DevCol:
-    """One column of a version, padded to `cap` rows, on the device. Each
-    block is copied into its rows of a zeroed device tile: no padded host
-    copy (6.4 GB per int64 column at TPC-H SF100)."""
+def _column(table: Table, v: int, name: str, cap: int, device, partitions=None) -> DevCol:
+    """One column of a version (of its kept partitions' blocks), padded to
+    `cap` rows, on the device. Each block is copied into its rows of a
+    zeroed device tile: no padded host copy (6.4 GB per int64 column at
+    TPC-H SF100)."""
+    blocks = table.blocks(v, partitions=partitions)
     if name == ROWID:
-        n = sum(b.nrows for b in table.blocks(v))
+        n = sum(b.nrows for b in blocks)
         idx = torch.arange(cap, dtype=torch.int64, device=device)
         return DevCol(idx, idx < n)
     typ = table.schema.types[name]
@@ -65,7 +71,7 @@ def _column(table: Table, v: int, name: str, cap: int, device) -> DevCol:
     data = torch.zeros(cap, dtype=dtype, device=device)
     valid = torch.zeros(cap, dtype=torch.bool, device=device)
     off = 0
-    for b in table.blocks(v):
+    for b in blocks:
         c = b.columns.get(name)
         if c is not None:  # a block without the column reads as NULL
             for dst, src in ((data, c.data), (valid, c.valid)):
@@ -81,9 +87,17 @@ def _nbytes(value) -> int:
     return value.nbytes
 
 
-def is_cached(table: Table, version: int, column: str, capacity: int, device: str) -> bool:
-    """Whether a column's tile already lies in the device cache."""
-    return (table.uid, version, column, capacity, device) in _scan_cache
+def _pkey(partitions):
+    """The cache's partition key: the kept ids sorted, None for the whole
+    table."""
+    return tuple(sorted(partitions)) if partitions is not None else None
+
+
+def is_cached(table: Table, version: int, column: str, capacity: int, device: str,
+              partitions=None) -> bool:
+    """Whether a column's tile (of the kept partitions) already lies in
+    the device cache."""
+    return (table.uid, version, column, capacity, device, _pkey(partitions)) in _scan_cache
 
 
 def device_bytes(keep=()) -> int:
@@ -125,6 +139,16 @@ def invalidate(table: Table) -> int:
     return freed
 
 
+def cached_partition_sets() -> Dict[int, Dict[object, int]]:
+    """Table uid -> {kept partition ids (None: the whole table) -> bytes
+    of its cached device columns}."""
+    out: Dict[int, Dict[object, int]] = {}
+    for k, val in _scan_cache.items():
+        per = out.setdefault(k[0], {})
+        per[k[5]] = per.get(k[5], 0) + _nbytes(val)
+    return out
+
+
 def cached_versions() -> Dict[int, set]:
     """Table uid -> the versions the cache holds columns of."""
     out: Dict[int, set] = {}
@@ -139,21 +163,25 @@ def scan_table(
     capacity: Optional[int] = None,
     version: Optional[int] = None,
     device=None,
+    partitions=None,
 ) -> Tuple[Batch, Dict[str, np.ndarray]]:
     """Returns (device batch, dictionaries of the scanned columns). The
-    batch lies on CUDA unless the caller names another device."""
+    batch lies on CUDA unless the caller names another device.
+    `partitions`: the partition ids whose blocks the scan reads (with the
+    untagged blocks); None reads every block."""
     device = resolve_device(device)
     v = table.version if version is None else version
-    n = sum(b.nrows for b in table.blocks(v))
+    pkey = _pkey(partitions)
+    n = sum(b.nrows for b in table.blocks(v, partitions=pkey))
     cap = capacity or pad_capacity(n)
     dev = str(device)
     cols = {
-        c: _cached(table, (table.uid, v, c, cap, dev),
-                   lambda c=c: _column(table, v, c, cap, device))
+        c: _cached(table, (table.uid, v, c, cap, dev, pkey),
+                   lambda c=c: _column(table, v, c, cap, device, pkey))
         for c in columns
     }
     rv = _cached(
-        table, (table.uid, v, ROW_MASK, cap, dev),
+        table, (table.uid, v, ROW_MASK, cap, dev, pkey),
         lambda: torch.arange(cap, dtype=torch.int64, device=device) < n,
     )
     dicts = {c: table.dictionaries[c] for c in columns if c in table.dictionaries}

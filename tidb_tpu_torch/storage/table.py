@@ -23,8 +23,15 @@ reads through. ALTER TABLE's column forms publish a new version
 A table also carries its constraint and generated-column metadata
 (``checks``, ``fks``, ``fk_actions``, ``fk_update_actions``,
 ``generated``), which the session enforces on its write path.
-Partitions, TTL, commit observers and the fleet's delta capture are not
-ported.
+
+Partitioning (RANGE, HASH or LIST over one integer-encoded column) is
+table metadata, versioned with the table (``partition_defs_at``): an
+append splits its block by partition (``split_by_partition``, each block
+tagged with its ``part_id``), a pruned read keeps only the blocks of the
+partitions it names (``blocks(version, partitions=)``; an untagged block
+always scans), and ADD, DROP and TRUNCATE PARTITION publish a new
+version (``alter_add_partitions``, ``alter_drop_partitions``). TTL,
+commit observers and the fleet's delta capture are not ported.
 """
 
 from __future__ import annotations
@@ -203,6 +210,36 @@ class Table:
         # (block uids, column) -> (sorted values, argsort permutation,
         # valid count): the range index, at most a few entries
         self._idx_cache: dict = {}
+        # partitioning: ("range", column, [(name, upper or None)]),
+        # ("hash", column, count) or ("list", column, [(name, values)]),
+        # bounds and values raw-encoded; None = unpartitioned. The defs
+        # are versioned: a reader pinned before a partition DDL prunes
+        # with the defs its blocks were tagged under
+        self._partition: Optional[tuple] = None
+        self._partition_history: List[Tuple[int, Optional[tuple]]] = []
+
+    @property
+    def partition(self) -> Optional[tuple]:
+        return self._partition
+
+    @partition.setter
+    def partition(self, defs: Optional[tuple]) -> None:
+        self._partition = defs
+        hist = self._partition_history
+        if not hist or hist[-1][1] != defs:
+            hist.append((self.version, defs))
+
+    def partition_defs_at(self, version: Optional[int]) -> Optional[tuple]:
+        """The partition defs in force at `version` (None: the current)."""
+        hist = self._partition_history
+        if version is None or not hist:
+            return self._partition
+        defs = hist[0][1]
+        for v, p in hist:
+            if v > version:
+                break
+            defs = p
+        return defs
 
     def index_state(self, name: str) -> str:
         return self.index_states.get(name.lower(), "public")
@@ -215,8 +252,96 @@ class Table:
             if self.index_state(n) == "public" and n not in self.invisible_indexes
         }
 
-    def blocks(self, version: Optional[int] = None) -> List[HostBlock]:
-        return self._versions[self.version if version is None else version]
+    def blocks(self, version: Optional[int] = None, partitions=None) -> List[HostBlock]:
+        """A version's blocks; `partitions` (partition ids) keeps only
+        theirs, and the untagged blocks, which may hold any partition's
+        rows."""
+        bs = self._versions[self.version if version is None else version]
+        if partitions is None:
+            return bs
+        keep = set(partitions)
+        return [b for b in bs if b.part_id is None or b.part_id in keep]
+
+    # -- partitioning ----------------------------------------------------
+    def partition_names(self, version: Optional[int] = None) -> list:
+        """The partitions' names, by id, under the defs at `version`."""
+        defs = self.partition_defs_at(version)
+        if defs is None:
+            return []
+        if defs[0] == "hash":
+            return [f"p{i}" for i in range(int(defs[2]))]
+        return [n for n, _u in defs[2]]
+
+    def null_partition(self) -> Optional[int]:
+        """Where NULL keys go: the lowest partition of RANGE and HASH, the
+        LIST partition listing NULL (None when none does: NULL rows are
+        refused)."""
+        if self.partition is None:
+            return None
+        if self.partition[0] != "list":
+            return 0
+        for i, (_n, vals) in enumerate(self.partition[2]):
+            if any(v is None for v in vals):
+                return i
+        return None
+
+    def partition_of(self, values: np.ndarray) -> np.ndarray:
+        """The partition id of each raw-encoded partition-column value."""
+        kind = self.partition[0]
+        v64 = values.astype(np.int64)
+        if kind == "hash":
+            n = int(self.partition[2])
+            return (v64 % n + n) % n
+        if kind == "list":
+            flat = [(v, i) for i, (_n, vals) in enumerate(self.partition[2])
+                    for v in vals if v is not None]
+            fv = np.array([v for v, _i in flat], dtype=np.int64)
+            order = np.argsort(fv)
+            fv, fp = fv[order], np.array([i for _v, i in flat], dtype=np.int64)[order]
+            pos = np.searchsorted(fv, v64)
+            pos_c = np.minimum(pos, max(len(fv) - 1, 0))
+            ok = (pos < len(fv)) & (fv[pos_c] == v64) if len(fv) else np.zeros(len(v64), bool)
+            if not ok.all():
+                raise ValueError(f"Table has no partition for value {int(v64[~ok][0])}")
+            return fp[pos_c]
+        uppers = [u for _n, u in self.partition[2]]
+        bounds = np.array([u for u in uppers if u is not None], dtype=np.int64)
+        pid = np.searchsorted(bounds, v64, side="right")
+        if uppers and uppers[-1] is None:
+            return np.minimum(pid, len(uppers) - 1)
+        if (pid >= len(uppers)).any():
+            raise ValueError(f"Table has no partition for value {int(values[pid.argmax()])}")
+        return pid
+
+    def split_by_partition(self, block: HostBlock) -> List[HostBlock]:
+        """An incoming block as one block per partition it reaches, each
+        tagged with its ``part_id``; an unpartitioned table's block passes
+        through."""
+        if self.partition is None or block.nrows == 0:
+            return [block]
+        pcol = self.partition[1]
+        c = block.columns.get(pcol)
+        if c is None:
+            raise ValueError(f"partition column {pcol!r} missing")
+        np_id = 0
+        if not c.valid.all():
+            np_id = self.null_partition()
+            if np_id is None:
+                raise ValueError(
+                    "Table has no partition for NULL "
+                    f"(no LIST partition lists NULL in {pcol!r})")
+        pid = np.full(block.nrows, np_id, dtype=np.int64)
+        if c.valid.any():
+            pid[c.valid] = self.partition_of(c.data[c.valid])
+        first = int(pid[0])
+        if (pid == first).all():
+            return [HostBlock(dict(block.columns), block.nrows, part_id=first)]
+        out = []
+        for p in np.unique(pid).tolist():
+            nb = _take_block(block, np.flatnonzero(pid == p))
+            nb.part_id = int(p)
+            out.append(nb)
+        return out
 
     @property
     def nrows(self) -> int:
@@ -304,9 +429,10 @@ class Table:
             self._check_domains(block)
             block = self._align_dictionaries(block)
             self._check_unique(block)
+            landed = self.split_by_partition(block)
             self.modify_count += block.nrows
-            v = self._publish(list(self._versions[self.version]) + [block])
-            return v, [block.uid]
+            v = self._publish(list(self._versions[self.version]) + landed)
+            return v, [b.uid for b in landed]
 
     def _check_not_null(self, block: HostBlock) -> None:
         """NOT NULL enforcement on every block-install path (append,
@@ -543,6 +669,87 @@ class Table:
         """Truncate (a new empty version); dictionaries are kept."""
         with self._lock:
             return self._publish([])
+
+    # -- partition DDL -------------------------------------------------------
+    def alter_add_partitions(self, new_parts) -> int:
+        """Append RANGE partitions (encoded uppers, None = MAXVALUE) or
+        LIST partitions (encoded value tuples): metadata only, under a
+        new version."""
+        with self._lock:
+            if self.partition is None or self.partition[0] not in ("range", "list"):
+                raise ValueError("ADD PARTITION requires a RANGE- or LIST-partitioned table")
+            kind, pcol, parts = self.partition
+            parts = list(parts)
+            names = {n for n, _v in parts}
+            if kind == "list":
+                owned = {v for _n, vals in parts for v in vals}
+                for n, vals in new_parts:
+                    n = n.lower()
+                    if not isinstance(vals, tuple):
+                        raise ValueError("LIST partitions need VALUES IN (...)")
+                    if n in names:
+                        raise ValueError(f"duplicate partition name {n!r}")
+                    clash = owned & set(vals)
+                    if clash:
+                        raise ValueError(
+                            f"list value {sorted(clash, key=repr)[0]!r} "
+                            "already belongs to another partition")
+                    parts.append((n, tuple(vals)))
+                    names.add(n)
+                    owned |= set(vals)
+            else:
+                if parts and parts[-1][1] is None:
+                    raise ValueError("cannot ADD PARTITION after a MAXVALUE partition")
+                last = parts[-1][1] if parts else None
+                for i, (n, u) in enumerate(new_parts):
+                    n = n.lower()
+                    if n in names:
+                        raise ValueError(f"duplicate partition name {n!r}")
+                    if u is None and i != len(new_parts) - 1:
+                        raise ValueError("MAXVALUE must be the last partition")
+                    if u is not None and last is not None and u <= last:
+                        raise ValueError("VALUES LESS THAN must be strictly increasing")
+                    parts.append((n, u))
+                    names.add(n)
+                    last = u if u is not None else last
+            v = self._publish(list(self._versions[self.version]))
+            self.partition = (kind, pcol, parts)
+            return v
+
+    def alter_drop_partitions(self, names: Sequence[str], truncate_only: bool = False) -> int:
+        """DROP PARTITION (the defs go and later partitions' ids shift
+        down) or TRUNCATE PARTITION (the rows go, the defs stay), under a
+        new version. Returns the rows removed."""
+        with self._lock:
+            if self.partition is None or self.partition[0] not in ("range", "list"):
+                raise ValueError(
+                    "DROP/TRUNCATE PARTITION requires a RANGE- or LIST-partitioned table")
+            kind, pcol, parts = self.partition
+            all_names = [n for n, _u in parts]
+            drop = set()
+            for n in names:
+                n = n.lower()
+                if n not in all_names:
+                    raise ValueError(f"unknown partition {n!r}")
+                drop.add(all_names.index(n))
+            if not truncate_only and len(drop) >= len(parts):
+                raise ValueError("cannot drop all partitions")
+            removed = 0
+            new_blocks = []
+            for b in self._versions[self.version]:
+                if b.part_id in drop:
+                    removed += b.nrows
+                    continue
+                if not truncate_only and b.part_id is not None:
+                    shift = sum(1 for j in drop if j < b.part_id)
+                    if shift:
+                        b = dataclasses.replace(b, part_id=b.part_id - shift)
+                new_blocks.append(b)
+            self.modify_count += removed
+            self._publish(new_blocks)
+            if not truncate_only:
+                self.partition = (kind, pcol, [p for i, p in enumerate(parts) if i not in drop])
+            return removed
 
     # -- per-version column facts ----------------------------------------
     def col_bounds(self, col: str, version: Optional[int] = None):

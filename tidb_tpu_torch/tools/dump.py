@@ -4,13 +4,15 @@ Counterpart of tidb_tpu/tools/dump.py: ``create_table_sql``, which SHOW
 CREATE TABLE prints (generated columns, CHECK and FOREIGN KEY clauses
 with their ON DELETE actions, as the JAX package renders them), and
 ``dump_table_sql``, the schema and INSERT batches of one table, read at
-one pinned version. The port's tables carry no partitioning or TTL, so
-those clauses never arise; the CSV format and the command line are not
-ported.
+one pinned version. A partitioned table's PARTITION BY RANGE, LIST or
+HASH clause is rendered as the JAX package renders it (TTL is not
+ported, so its clause never arises); the CSV format and the command line
+are not ported.
 """
 
 from __future__ import annotations
 
+import datetime
 from typing import List
 
 from tidb_tpu_torch.dtypes import Kind, days_to_date, micros_to_datetime, micros_to_time
@@ -80,7 +82,41 @@ def create_table_sql(t) -> str:
         suffix = {"cascade": " on delete cascade",
                   "set_null": " on delete set null"}.get(t.fk_actions.get(nm.lower()), "")
         parts.append(f"constraint {nm} foreign key ({col}) references {rdb}.{rtbl} ({rcol}){suffix}")
-    return f"CREATE TABLE `{t.name}` (\n  " + ",\n  ".join(parts) + "\n);"
+    return f"CREATE TABLE `{t.name}` (\n  " + ",\n  ".join(parts) + f"\n){_partition_sql(t)};"
+
+
+def _partition_sql(t) -> str:
+    """A table's PARTITION BY clause, with a leading space, or ''."""
+    part = t.partition
+    if part is None:
+        return ""
+    kind, pcol, spec = part
+    if kind == "hash":
+        return f" partition by hash ({pcol}) partitions {spec}"
+    ptype = t.schema.types.get(pcol)
+
+    def bound(u):
+        if u is None:
+            return "maxvalue"
+        if ptype is not None and ptype.kind == Kind.DATE:
+            return f"(date '{days_to_date(int(u))}')"
+        if ptype is not None and ptype.kind == Kind.DATETIME:
+            # sub-second digits kept: a dump and restore must not move rows
+            txt = (datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=int(u))
+                   ).strftime("%Y-%m-%d %H:%M:%S.%f").rstrip("0").rstrip(".")
+            return f"('{txt}')"
+        if ptype is not None and ptype.kind == Kind.DECIMAL:
+            return f"({int(u) / 10**ptype.scale})"
+        return f"({u})"
+
+    if kind == "list":
+        decls = ", ".join(
+            f"partition {n} values in ("
+            + ", ".join("null" if v is None else bound(v).strip("()") for v in vals) + ")"
+            for n, vals in spec)
+        return f" partition by list ({pcol}) ({decls})"
+    decls = ", ".join(f"partition {n} values less than {bound(u)}" for n, u in spec)
+    return f" partition by range ({pcol}) ({decls})"
 
 
 def _decoded_rows(t):

@@ -1,15 +1,68 @@
 """Statement digests.
 
 Counterpart of tidb_tpu/utils/metrics.py, cut to ``sql_digest`` and its
-normalizer: SQL bindings match a statement by its digest. The metrics
-registry, the slow log and the statement summaries belong to a later
-slice (ROADMAP.md queue 1 item 6).
+normalizer (SQL bindings match a statement by its digest) and to the
+normalized texts of the statements run in the process (``record_digest``,
+``seen_digests``), which TIDB_DECODE_SQL_DIGESTS reads where the JAX
+package reads its statement summary. The metrics registry, the slow log
+and the statement summaries belong to a later slice (ROADMAP.md queue 1
+item 6).
 """
 
 from __future__ import annotations
 
 import re
-from typing import List
+import threading
+from collections import OrderedDict
+from typing import List, Optional
+
+class _SeenTexts:
+    """The texts of the statements run, most recent last, each with its
+    normalized text once asked for: normalizing costs about what parsing
+    does, so it waits for TIDB_DECODE_SQL_DIGESTS instead of taxing every
+    statement. Bounded by count, as the JAX package's statement summary
+    is (512), and by characters (a 1,000-row INSERT is ~100 KB)."""
+
+    def __init__(self, most: int = 512, max_chars: int = 8 << 20) -> None:
+        self.most, self.max_chars = most, max_chars
+        self.texts: "OrderedDict[str, Optional[str]]" = OrderedDict()
+        self.chars = 0
+        self.lock = threading.Lock()
+
+    def add(self, sql: str) -> None:
+        with self.lock:
+            if sql in self.texts:
+                self.texts.move_to_end(sql)
+                return
+            self.texts[sql] = None
+            self.chars += len(sql)
+            while len(self.texts) > self.most or (
+                    self.chars > self.max_chars and len(self.texts) > 1):
+                old, _d = self.texts.popitem(last=False)
+                self.chars -= len(old)
+
+    def digests(self) -> List[str]:
+        with self.lock:
+            pending = [t for t, d in self.texts.items() if d is None]
+        done = {t: sql_digest(t) for t in pending}
+        with self.lock:
+            for t, d in done.items():
+                if t in self.texts:
+                    self.texts[t] = d
+            return list(dict.fromkeys(d for d in self.texts.values() if d is not None))
+
+
+_SEEN = _SeenTexts()
+
+
+def record_digest(sql: str) -> None:
+    """Note a finished statement's text."""
+    _SEEN.add(sql)
+
+
+def seen_digests() -> List[str]:
+    """The normalized texts of the statements noted, each once."""
+    return _SEEN.digests()
 
 
 def _collapse_in_lists(parts: List[str]) -> List[str]:

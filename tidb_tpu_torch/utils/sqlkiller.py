@@ -11,6 +11,7 @@ for the device.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -48,12 +49,35 @@ class SQLKiller:
 # (set by Session._execute_stmt): host-side blocking builtins (SLEEP,
 # GET_LOCK waits) poll it so KILL and the instance watchdogs can abort
 # them — the reference's sqlkiller is likewise reachable from any
-# executor goroutine.
+# executor goroutine. Beside it, the statement's device lock, which
+# those builtins let go while they wait.
 _current = threading.local()
 
 
-def set_current(killer) -> None:
+def set_current(killer, lock=None) -> None:
     _current.killer = killer
+    _current.lock = lock
+
+
+@contextlib.contextmanager
+def statement_lock_released():
+    """Let the current statement's device lock (a ``threading.RLock``)
+    go while a host-side builtin waits, so that other sessions'
+    statements run meanwhile, and take it back at the same depth after.
+    A GET_LOCK that waits for another session's RELEASE_LOCK needs this
+    to succeed at all. Take no other lock before entering: the device
+    lock is always taken first."""
+    lock = getattr(_current, "lock", None)
+    if lock is None or not lock._is_owned():
+        yield
+        return
+    # what threading.Condition.wait does with an RLock: every level of
+    # this thread's hold is released, then restored together
+    state = lock._release_save()
+    try:
+        yield
+    finally:
+        lock._acquire_restore(state)
 
 
 def current_check() -> None:
@@ -63,11 +87,13 @@ def current_check() -> None:
 
 
 def interruptible_sleep(seconds: float) -> None:
-    """time.sleep in 50ms slices, polling the current killer."""
+    """time.sleep in 50ms slices, polling the current killer, with the
+    statement's device lock let go."""
     deadline = time.monotonic() + seconds
-    while True:
-        current_check()
-        remaining = deadline - time.monotonic()
-        if remaining <= 0:
-            return
-        time.sleep(min(remaining, 0.05))
+    with statement_lock_released():
+        while True:
+            current_check()
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            time.sleep(min(remaining, 0.05))

@@ -273,7 +273,6 @@ def test_nulls_order_and_unbound_limit(pair):
 # ---------------------------------------------------------------------------
 
 UNPORTED = [
-    ("load data infile 'rows.txt' into table t", "LOAD DATA"),
     ("select cast(a as char) from t", "CAST from int to string"),
 ]
 
@@ -307,6 +306,7 @@ PORTED = [
     ("alter table t add column z int, drop partition p0", "partitions"),
     ("create sequence s", "sequences"),
     ("create temporary table tt (a int)", "temporary tables"),
+    ("load data infile 'rows.txt' into table t", "LOAD DATA"),
 ]
 
 

@@ -488,17 +488,28 @@ def test_pruned_scans_stream_sort_and_partition(monkeypatch):
 
 
 @pytest.mark.parametrize("sql,what", [
-    ("create table tt (a int, d date) ttl = d + interval 1 day", "TTL"),
-    ("admin check table t", "ADMIN statements"),
     ("backup database test to 'bk'", "BACKUP and RESTORE"),
     ("restore database test from 'bk'", "BACKUP and RESTORE"),
-    ("load data infile 'rows.txt' into table t", "LOAD DATA"),
 ])
 def test_what_stays_unported_names_itself(sql, what):
-    """TTL, ADMIN CHECK (and with it its partition tagging), partition
-    persistence through BACKUP / RESTORE, and LOAD DATA stay refused, by
+    """Partition persistence through BACKUP / RESTORE stays refused, by
     name, before any lock."""
     s = Session(Catalog(), device="cpu")
     s.execute("create table t (a int, d date) partition by hash (a) partitions 2")
     with pytest.raises(NotImplementedError, match=what):
         s.execute(sql)
+
+
+@pytest.mark.parametrize("sql", [
+    "create table tt (a int, d date) ttl = d + interval 1 day",
+    "admin check table t",
+    "load data infile 'rows.txt' into table t",
+], ids=["TTL", "ADMIN statements", "LOAD DATA"])
+def test_once_refused_construct_matches_jax(sql):
+    """TTL, ADMIN CHECK (with its partition tagging) and LOAD DATA, once
+    refused here, give the JAX Session's answer over a partitioned table."""
+    pair = WritePair(JaxSession(), Session(Catalog(), device="cpu"))
+    pair.runs("create table t (a int, d date) partition by hash (a) partitions 2",
+              "insert into t values (1, '2020-01-01'), (2, null), (3, '2021-02-03')",
+              sql, "admin check table t", "select count(*) from t")
+    pair.state("t")

@@ -5,6 +5,11 @@ Each ``csrc/<name>.cu`` compiles on its own, at first use, into
 (no PyTorch headers, so a build takes seconds). The hash covers the
 source and the flags, so an edited source rebuilds. ``build_all`` starts
 one nvcc per source, all at once.
+
+Host code (``csrc/<name>.cpp``: the bulk loader's splitter) builds the
+same way with g++ (``load_host``), into the same directory. A failed
+build raises with the compiler's output. Two processes may build at
+once: each compiles into a name of its own and renames it into place.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -96,4 +103,34 @@ def load(name: str) -> ctypes.CDLL:
             os.makedirs(BUILD, exist_ok=True)
             _finish(name, *_start(name))
         lib = _loaded[name] = ctypes.CDLL(path)
+    return lib
+
+
+def _host_target(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cpp"), "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD, f"lib{name}-{h}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built
+    with g++ if needed. Raises with the compiler's output when the build
+    fails."""
+    key = name + ".cpp"
+    lib = _loaded.get(key)
+    if lib is None:
+        path = _host_target(name)
+        if not os.path.exists(path):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: csrc/{name}.cpp cannot be built")
+            os.makedirs(BUILD, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                [gxx, *HOST_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cpp")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for {name}.cpp:\n{proc.stdout}")
+            os.replace(tmp, path)
+        lib = _loaded[key] = ctypes.CDLL(path)
     return lib

@@ -5,7 +5,10 @@ Counterpart of tidb_tpu/server/server.py. Reference: pkg/server/server.go
 loop), one goroutine per connection; here one thread per connection, all
 sharing the catalog. Each connection's statements run on the server's
 device one at a time across the process (``session.statement_lock``);
-handshakes, parsing and wire I/O stay concurrent.
+handshakes, parsing and wire I/O stay concurrent. ``serve_forever``
+also starts the two background workers the JAX server runs, the
+auto-analyze ``StatsHandle`` (every 30 s) and the ``TTLWorker`` (every
+60 s), and ``shutdown`` stops and joins them.
 
 The server runs on CUDA unless the caller passes ``device="cpu"``; with
 no card present it raises before it listens.
@@ -22,7 +25,9 @@ from typing import Dict, Optional
 from tidb_tpu_torch.chunk import resolve_device
 from tidb_tpu_torch.server import protocol as P
 from tidb_tpu_torch.session.session import Result, Session
+from tidb_tpu_torch.stats.handle import StatsHandle
 from tidb_tpu_torch.storage import Catalog
+from tidb_tpu_torch.utils.ttl import TTLWorker
 
 COM_QUIT = 0x01
 COM_INIT_DB = 0x02
@@ -76,8 +81,14 @@ class Server:
 
         self._tcp = TCP((host, port), Handler)
         self.port = self._tcp.server_address[1]
+        # the background workers (reference: the domain's stats handle
+        # loop and the TTL job manager)
+        self.stats_handle = StatsHandle(self.catalog, interval_s=30.0, device=self.device)
+        self.ttl_worker = TTLWorker(self.catalog, interval_s=60.0, device=self.device)
 
     def serve_forever(self) -> None:
+        self.stats_handle.start()
+        self.ttl_worker.start()
         self._tcp.serve_forever()
 
     def start_background(self) -> threading.Thread:
@@ -88,7 +99,11 @@ class Server:
         return th
 
     def shutdown(self) -> None:
+        # the accept loop first: it returns once serve_forever, which
+        # starts the workers, has run, so no worker starts after its stop
         self._tcp.shutdown()
+        self.ttl_worker.stop()
+        self.stats_handle.stop()
         self._tcp.server_close()
 
     # ------------------------------------------------------------------

@@ -60,9 +60,17 @@ statement until the transaction ends; an autocommit writer takes them
 for its statement. An autocommit DML that changed more than
 ``tidb_auto_analyze_ratio`` of a table re-analyzes it. Conflicts of
 REPLACE, ON DUPLICATE KEY UPDATE and INSERT IGNORE resolve against the
-PRIMARY KEY and every UNIQUE index, in the encoded domain. LOAD DATA,
-TTL, information_schema's diagnostic tables and metrics_schema raise
+PRIMARY KEY and every UNIQUE index, in the encoded domain.
+information_schema's diagnostic tables and metrics_schema raise
 ``NotImplementedError`` naming themselves.
+
+Bulk loads and checks: LOAD DATA [LOCAL] INFILE (storage/loader.py, the
+native splitter where the JAX package takes it; a constrained table is
+checked after the append and rolled back on a violation), IMPORT INTO
+over the DXF (dxf/: four executors parse byte ranges, the finalize
+appends), CREATE TABLE ... TTL (utils/ttl.py expires the rows), and
+ADMIN CHECK TABLE / CHECK INDEX / CHECKSUM TABLE / SHOW DDL JOBS and
+CHECK TABLE (session/admin.py).
 
 Partitioned tables: CREATE TABLE ... PARTITION BY RANGE, HASH or LIST
 (``_encode_partition``), ALTER TABLE ... ADD, DROP, TRUNCATE and
@@ -141,6 +149,7 @@ from tidb_tpu_torch.planner import build_query
 from tidb_tpu_torch.planner.logical import ExprBinder, Schema, _display_name, _scalar_subq
 from tidb_tpu_torch.planner.physical import PhysicalExecutor, StaleWidthsError
 from tidb_tpu_torch.planner.streamed import try_streamed_sort
+from tidb_tpu_torch.session.admin import AdminMixin
 from tidb_tpu_torch.session.constraints import ConstraintMixin
 from tidb_tpu_torch.session.ddl import PARTITION_WRITES, DDLMixin
 from tidb_tpu_torch.stats import analyze_table
@@ -148,6 +157,7 @@ from tidb_tpu_torch.stats.handle import maybe_auto_analyze
 from tidb_tpu_torch.storage import Catalog, Table, TableSchema
 from tidb_tpu_torch.storage import scan as _scan
 from tidb_tpu_torch.storage.catalog import unported_virtual_table
+from tidb_tpu_torch.storage.loader import load_file
 from tidb_tpu_torch.storage.locks import DeadlockError, next_txn_id
 from tidb_tpu_torch.storage.sequence import Sequence
 from tidb_tpu_torch.storage.table import set_gc_life
@@ -161,12 +171,10 @@ from tidb_tpu_torch.utils.sqlkiller import SQLKiller
 from tidb_tpu_torch.utils.sysvar import SysVars
 
 _READS = (ast.Select, ast.Union, ast.With, ast.SetOp)
-_DML = (ast.Insert, ast.Update, ast.Delete)
+_DML = (ast.Insert, ast.Update, ast.Delete, ast.LoadData)
 
 #: statements this slice leaves out, by the name the error gives them
 _UNPORTED = {
-    ast.LoadData: "LOAD DATA",
-    ast.AdminStmt: "ADMIN statements (ADMIN CHECK TABLE, ...)",
     ast.BackupRestore: "BACKUP and RESTORE (persistence and BR)",
 }
 
@@ -439,7 +447,7 @@ _CONST_HOST_OPS = set(_CONST_BINARY) | {
 }
 
 
-class Session(DDLMixin, ConstraintMixin):
+class Session(DDLMixin, ConstraintMixin, AdminMixin):
     def __init__(
         self,
         catalog: Optional[Catalog] = None,
@@ -608,6 +616,12 @@ class Session(DDLMixin, ConstraintMixin):
             return self._run_delete(s)
         if isinstance(s, ast.Update):
             return self._run_update(s)
+        if isinstance(s, ast.LoadData):
+            return self._run_load_data(s)
+        if isinstance(s, ast.ImportInto):
+            return self._run_import_into(s)
+        if isinstance(s, ast.AdminStmt):
+            return self._run_admin(s)
         if isinstance(s, ast.TxnControl):
             return self._run_txn_control(s)
         if isinstance(s, ast.CreateTable):
@@ -858,7 +872,8 @@ class Session(DDLMixin, ConstraintMixin):
         if isinstance(s, _READS + (ast.Explain,)):
             reads(s)
         elif isinstance(s, _DML):
-            priv = {ast.Insert: "insert", ast.Update: "update", ast.Delete: "delete"}[type(s)]
+            priv = {ast.Insert: "insert", ast.Update: "update", ast.Delete: "delete",
+                    ast.LoadData: "insert"}[type(s)]
             for db, name in self._dml_lock_tables(s):
                 self._check_priv(priv, db.lower(), name.lower())
             # a table read inside the statement (INSERT ... SELECT, a
@@ -903,8 +918,11 @@ class Session(DDLMixin, ConstraintMixin):
         elif isinstance(s, (ast.CreateSequence, ast.DropSequence)):
             self._check_priv("create" if isinstance(s, ast.CreateSequence) else "drop",
                              (s.db or self.db).lower())
-        elif isinstance(s, (ast.CreateUser, ast.DropUser, ast.GrantStmt, ast.CreateBinding)):
+        elif isinstance(s, (ast.CreateUser, ast.DropUser, ast.GrantStmt, ast.CreateBinding,
+                            ast.AdminStmt)):
             self._require_super()
+        elif isinstance(s, ast.ImportInto):
+            self._check_priv("insert", (s.db or self.db).lower(), s.table.lower())
 
     # -- session functions ---------------------------------------------
     def _resolve_session_funcs(self, node):
@@ -1761,6 +1779,7 @@ class Session(DDLMixin, ConstraintMixin):
             shadow.fk_actions = dict(t.fk_actions)
             shadow.fk_update_actions = dict(t.fk_update_actions)
             shadow.generated = list(t.generated)
+            shadow.ttl = t.ttl
             # the snapshot's blocks were tagged under the snapshot's defs
             shadow.partition = t.partition_defs_at(pinned)
             # the uniqueness and range indexes are keyed by block uids:
@@ -2048,8 +2067,6 @@ class Session(DDLMixin, ConstraintMixin):
     # -- DDL -----------------------------------------------------------
     def _run_create_table(self, s: ast.CreateTable) -> Result:
         db = s.db or self.db
-        if s.ttl is not None:
-            raise NotImplementedError("TTL is not ported yet")
         if s.as_query is not None:
             return self._run_ctas(s, db)
         if s.like is not None:
@@ -2065,12 +2082,13 @@ class Session(DDLMixin, ConstraintMixin):
                 list(src.schema.columns), primary_key=list(pk) if pk else None,
                 not_null=tuple(src.schema.not_null))
             if s.temporary:
-                if src.partition is not None:
+                if src.partition is not None or src.ttl is not None:
                     raise ValueError("temporary tables do not support partitioning/TTL")
                 t = self.catalog.create_temp_table(db, s.name, schema)
             else:
                 t = self.catalog.create_table(db, s.name, schema)
                 t.partition = src.partition
+                t.ttl = src.ttl
             t.autoinc_col = src.autoinc_col
             t.defaults = dict(src.defaults)
             t.checks = list(src.checks)
@@ -2113,10 +2131,21 @@ class Session(DDLMixin, ConstraintMixin):
                 if rcol not in pt.schema.names:
                     raise ValueError(f"FOREIGN KEY references unknown column {rdb}.{rtbl}.{rcol}")
             fks.append((nm, col, rdb, rtbl, rcol))
+        ttl_opt = None
+        if s.ttl is not None:
+            tcol, iv, unit = s.ttl
+            ct = schema.types.get(tcol.lower())
+            if ct is None or ct.kind not in (Kind.DATE, Kind.DATETIME):
+                raise ValueError("TTL column must be an existing DATE/DATETIME column")
+            if unit not in ("day", "week", "month", "hour", "minute", "second"):
+                raise ValueError(f"unsupported TTL unit {unit!r}")
+            ttl_opt = (tcol.lower(), int(iv), unit)
         part_meta = None
         if s.partition is not None:
             part_meta = self._encode_partition(schema, s.partition)
         if s.temporary:
+            if ttl_opt is not None:
+                raise ValueError("temporary tables do not support partitioning/TTL")
             return self._create_temporary(s, db, schema, auto, gen_meta, fks)
         # a temporary table shadowing the name neither blocks the shared
         # table nor lends it its identity
@@ -2125,6 +2154,7 @@ class Session(DDLMixin, ConstraintMixin):
         t = base.create_table(db, s.name, schema, s.if_not_exists)
         if not existed:
             t.partition = part_meta
+            t.ttl = ttl_opt
             for iname, icols, *uq in s.indexes:
                 self._add_index(t, iname, icols, unique=bool(uq and uq[0]))
             if auto:
@@ -2325,6 +2355,70 @@ class Session(DDLMixin, ConstraintMixin):
         finally:
             self._drop_cached(invalidate=[t])
         return Result([], [], affected=n_incoming + n_upd)
+
+    def _run_load_data(self, s: ast.LoadData) -> Result:
+        """LOAD DATA [LOCAL] INFILE (the path is read on the server, as in
+        the JAX package). A table with CHECKs or FOREIGN KEYs is checked
+        after the append over the loaded rows, and the append is rolled
+        back on a violation; generated columns are computed again over
+        the table."""
+        db = s.db or self.db
+        t = self._resolve_table_for_write(db, s.table)
+        constrained = bool(t.checks or t.fks)
+        # the append merges the file's strings into the table's sorted
+        # dictionaries and re-maps the stored blocks' codes: a rollback
+        # puts back the blocks and the dictionaries they were coded by
+        saved = (list(t.blocks()), dict(t.dictionaries)) if constrained else None
+        try:
+            n = load_file(t, s.path, sep=s.sep)
+            if constrained and n:
+                names = t.schema.names
+                loaded = []
+                for b in t.blocks()[len(saved[0]):]:
+                    dec = [b.columns[c].decode() for c in names]
+                    loaded += [list(r) for r in zip(*dec)]
+                try:
+                    self._enforce_write_constraints(t, db, loaded)
+                except Exception:
+                    t.replace_blocks(saved[0], modified_rows=n)
+                    t.dictionaries = saved[1]
+                    raise
+            if n and t.generated:
+                # the file's values of generated columns are computed again
+                self._recompute_generated(t)
+        finally:
+            self._drop_cached(invalidate=[t])
+        return Result([], [], affected=n)
+
+    #: IMPORT INTO's executors, and the most byte ranges it cuts a file
+    #: into (of at least 1 MiB each, the DXF default): one per executor
+    IMPORT_EXECUTORS = 4
+
+    def _run_import_into(self, s: ast.ImportInto) -> Result:
+        """IMPORT INTO: a DXF ``import`` task run to completion by four
+        executors (the Lightning pipeline's analog). Its subtasks parse on
+        the host; the finalize appends on this thread. The JAX statement
+        takes 1 MiB ranges; here a large file is cut into one range per
+        executor: each range's append merges its dictionaries into the
+        table's and re-maps the blocks landed before it, so many small
+        ranges cost time that grows with their count times the file (174
+        ranges of TPC-H SF10's customer took 84 s on an H100 host, 16 took
+        32 s). The rows are the same."""
+        from tidb_tpu_torch.dxf import TaskManager
+        import tidb_tpu_torch.dxf.tasks  # noqa: F401 (registers the task types)
+
+        db = s.db or self.db
+        target = self.catalog.table(db, s.table)
+        before = target.nrows
+        size = os.path.getsize(s.path) if os.path.isfile(s.path) else 0
+        m = TaskManager(self.catalog)
+        tid = m.submit("import", {"db": db, "table": s.table, "path": s.path, "sep": s.sep,
+                                  "chunk_bytes": max(1 << 20, -(-size // self.IMPORT_EXECUTORS))})
+        state = m.run_to_completion(tid, executors=self.IMPORT_EXECUTORS)
+        if state != "succeed":
+            raise RuntimeError(f"IMPORT INTO failed: {m.tasks[tid]['error']}")
+        self._drop_cached(invalidate=[target])
+        return Result([], [], affected=target.nrows - before)
 
     def _const_value(self, e):
         if isinstance(e, ast.Const):

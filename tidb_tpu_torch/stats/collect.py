@@ -88,21 +88,25 @@ def _column_stats(data, valid, row_valid):
     return fetch([scalars, bounds, bcounts, topf, top_vals, ends])
 
 
-def analyze_table(table, device=None) -> Dict[str, ColumnStats]:
+def analyze_table(table, device=None, columns=None) -> Dict[str, ColumnStats]:
     """ANALYZE TABLE: per-column stats of the current version, stored on
     the table (``table.stats``). The column pass runs on `device` (CUDA
-    unless the caller names another)."""
+    unless the caller names another). `columns` restricts the pass, and
+    its stats then merge into the table's (the DXF analyze task's
+    subtasks, one column each)."""
     device = resolve_device(device)
+    if columns is not None and not columns:
+        return dict(table.stats or {})
     # one version for the whole pass: a concurrent write must not change
     # the rows under it
     version = table.pin_current()
     try:
-        return _analyze_at_version(table, version, device)
+        return _analyze_at_version(table, version, device, columns)
     finally:
         table.unpin(version)
 
 
-def _analyze_at_version(table, version: int, device) -> Dict[str, ColumnStats]:
+def _analyze_at_version(table, version: int, device, columns=None) -> Dict[str, ColumnStats]:
     blocks = table.blocks(version)
     nrows = sum(b.nrows for b in blocks)
     sampled = nrows > SAMPLE_CAP
@@ -114,6 +118,8 @@ def _analyze_at_version(table, version: int, device) -> Dict[str, ColumnStats]:
         ratio = nrows / SAMPLE_CAP
     stats: Dict[str, ColumnStats] = {}
     for name, typ in table.schema.columns:
+        if columns is not None and name not in columns:
+            continue
         dictionary = table.dictionaries.get(name)
         if sampled:
             data_parts, valid_parts = [], []
@@ -181,7 +187,10 @@ def _analyze_at_version(table, version: int, device) -> Dict[str, ColumnStats]:
                 min_val=decode(mn),
                 max_val=decode(mx),
             )
-    table.stats = stats
-    # the auto-analyze counter restarts (a manual ANALYZE counts too)
-    table.analyzed_modify = table.modify_count
+    # merged under the table lock: concurrent one-column passes must not
+    # lose each other's columns
+    with table._lock:
+        table.stats = stats if columns is None else {**(table.stats or {}), **stats}
+        # the auto-analyze counter restarts (a manual ANALYZE counts too)
+        table.analyzed_modify = table.modify_count
     return stats

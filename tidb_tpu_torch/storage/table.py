@@ -30,8 +30,12 @@ append splits its block by partition (``split_by_partition``, each block
 tagged with its ``part_id``), a pruned read keeps only the blocks of the
 partitions it names (``blocks(version, partitions=)``; an untagged block
 always scans), and ADD, DROP and TRUNCATE PARTITION publish a new
-version (``alter_add_partitions``, ``alter_drop_partitions``). TTL,
-commit observers and the fleet's delta capture are not ported.
+version (``alter_add_partitions``, ``alter_drop_partitions``).
+
+TTL: ``ttl`` is (column, interval, unit) or None, and ``purge_expired``
+drops the rows whose TTL column is older than a cutoff in one step
+(utils/ttl.py computes the cutoff). Commit observers and the fleet's
+delta capture are not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -217,6 +222,8 @@ class Table:
         # with the defs its blocks were tagged under
         self._partition: Optional[tuple] = None
         self._partition_history: List[Tuple[int, Optional[tuple]]] = []
+        # TTL option (column, interval value, unit); None: rows never expire
+        self.ttl: Optional[tuple] = None
 
     @property
     def partition(self) -> Optional[tuple]:
@@ -515,6 +522,16 @@ class Table:
                     raise ValueError(f"duplicate entry for {label} ({col})")
 
     @staticmethod
+    def _key_part(d: np.ndarray) -> np.ndarray:
+        """One key component as int64: floats through their bit pattern
+        (-0.0 folded to +0.0)."""
+        if np.issubdtype(d.dtype, np.floating):
+            d64 = d.astype(np.float64, copy=True)
+            d64[d64 == 0.0] = 0.0
+            return d64.view(np.int64)
+        return d.astype(np.int64, copy=False)
+
+    @staticmethod
     def _key_matrix_full(columns: dict, cols):
         """([n, k] int64 key matrix, [n] all-components-valid mask) over
         every row. Floats go through their bit pattern (-0.0 folded to
@@ -523,16 +540,8 @@ class Table:
         allv = np.ones(n, dtype=bool)
         parts = []
         for c in cols:
-            hc = columns[c]
-            allv &= hc.valid
-            d = hc.data
-            if np.issubdtype(d.dtype, np.floating):
-                d64 = d.astype(np.float64, copy=True)
-                d64[d64 == 0.0] = 0.0
-                part = d64.view(np.int64)
-            else:
-                part = d.astype(np.int64, copy=False)
-            parts.append(part)
+            allv &= columns[c].valid
+            parts.append(Table._key_part(columns[c].data))
         mat = np.stack(parts, axis=1)
         mat = np.where(allv[:, None], mat, 0)
         return mat, allv
@@ -548,6 +557,39 @@ class Table:
         """One sortable scalar per row of a [n, k] key matrix."""
         return np.ascontiguousarray(m).view([("", m.dtype)] * m.shape[1]).ravel()
 
+    @staticmethod
+    def _key_columns(columns: dict, cols) -> np.ndarray:
+        """[k, m] int64: a composite key's components over the rows whose
+        key is fully valid, one contiguous row of the array each."""
+        allv = np.logical_and.reduce([columns[c].valid for c in cols])
+        return np.stack([Table._key_part(columns[c].data)[allv] for c in cols])
+
+    @staticmethod
+    def _sorted_rows(kc: np.ndarray) -> np.ndarray:
+        """The row views of a composite key's [k, n] components
+        (``_key_columns``), sorted. Where the components' ranges fit in 63
+        bits together, the rows sort as one packed int64 each (offset from
+        each component's minimum, so the signed order holds); otherwise
+        ``np.lexsort`` orders them. Both give the views' order, in a
+        fraction of a sort of the views."""
+        if not kc.shape[1]:
+            return Table._rows_view(kc.T)
+        lo, hi = kc.min(axis=1), kc.max(axis=1)
+        spans = [int(h) - int(l) + 1 for l, h in zip(lo.tolist(), hi.tolist())]
+        if math.prod(spans) >= 1 << 63:
+            return Table._rows_view(kc.T[np.lexsort(kc[::-1])])
+        packed = kc[0] - lo[0]
+        for j in range(1, len(spans)):
+            packed *= spans[j]
+            packed += kc[j] - lo[j]
+        packed.sort()
+        out = np.empty_like(kc)
+        for j in range(len(spans) - 1, 0, -1):
+            np.divmod(packed, spans[j], out=(packed, out[j]))
+        out[0] = packed
+        out += lo[:, None]
+        return Table._rows_view(out.T)
+
     def _check_unique_composite(self, label: str, cols, block) -> None:
         new = self._key_matrix(block.columns, cols)
         if not len(new):
@@ -556,18 +598,18 @@ class Table:
         if len(np.unique(new_v)) != len(new_v):
             raise ValueError(f"duplicate entry for {label} ({', '.join(cols)})")
         old_v = self._sorted_composite(tuple(cols))
-        if old_v is not None and len(old_v):
+        if len(old_v):
             pos = np.searchsorted(old_v, new_v)
-            hit = (pos < len(old_v)) & (old_v[np.minimum(pos, len(old_v) - 1)] == new_v)
-            if hit.any():
+            if ((pos < len(old_v)) & (old_v[np.minimum(pos, len(old_v) - 1)] == new_v)).any():
                 raise ValueError(f"duplicate entry for {label} ({', '.join(cols)})")
 
-    def _sorted_keys(self, kind: str, cols: tuple, keys_of):
-        """Sorted keys (``keys_of(block)``) over the current version's
-        blocks, cached with the uids of the blocks they cover. Appends
-        only add blocks, so a later version whose block list extends the
-        cached one merges in the new blocks' keys (two sorted runs: one
-        linear stable merge) instead of sorting the whole table again."""
+    def _sorted_keys(self, kind: str, cols: tuple, keys_of, sort):
+        """Sorted keys over the current version's blocks (``sort`` of the
+        list of each block's ``keys_of(block)``), cached with the uids of
+        the blocks they cover. Appends only add blocks, so a later
+        version whose block list extends the cached one sorts only the
+        new blocks' keys and inserts them at their places in the cached
+        ones (one linear pass) instead of sorting the whole table again."""
         blocks = [b for b in self._versions[self.version] if all(c in b.columns for c in cols)]
         uids = tuple(b.uid for b in blocks)
         hit = self._key_cache.get((kind, cols))
@@ -579,9 +621,9 @@ class Table:
             base, fresh = None, blocks
         parts = [k for b in fresh if len(k := keys_of(b))]
         if parts:
-            add = np.sort(np.concatenate(parts))
-            out = add if base is None or not len(base) else np.sort(
-                np.concatenate([base, add]), kind="stable")
+            add = sort(parts)
+            out = add if base is None or not len(base) else np.insert(
+                base, np.searchsorted(base, add, side="right"), add)
         else:
             out = base if base is not None else np.zeros(0, dtype=np.int64)
         if len(self._key_cache) > 8:
@@ -593,12 +635,16 @@ class Table:
         """Sorted valid values of one key column over the current
         version, kept incrementally (the uniqueness check's index)."""
         return self._sorted_keys(
-            "values", (col,), lambda b: b.columns[col].data[b.columns[col].valid])
+            "values", (col,), lambda b: b.columns[col].data[b.columns[col].valid],
+            lambda parts: np.sort(np.concatenate(parts)))
 
     def _sorted_composite(self, cols: tuple):
-        """Sorted row views of a composite key over the current version."""
+        """Sorted row views of a composite key over the current version
+        (the uniqueness index of a composite key, kept incrementally)."""
+        # each block's keys as an [m, k] view of its [k, m] components
         return self._sorted_keys(
-            "rows", tuple(cols), lambda b: self._rows_view(self._key_matrix(b.columns, cols)))
+            "rows", tuple(cols), lambda b: self._key_columns(b.columns, cols).T,
+            lambda parts: self._sorted_rows(np.concatenate([p.T for p in parts], axis=1)))
 
     def next_autoid(self, n: int = 1) -> int:
         """Allocate n consecutive AUTO_INCREMENT ids; returns the first."""
@@ -634,6 +680,31 @@ class Table:
                 if len(idx):
                     new_blocks.append(_take_block(block, idx))
             return self._publish(new_blocks)
+
+    def purge_expired(self, col: str, cutoff: int) -> int:
+        """TTL expiry: delete the rows whose `col` is below `cutoff` (raw
+        encoded; NULLs survive). Snapshot, mask and swap happen under one
+        lock hold, so a concurrent INSERT neither loses its block nor is
+        masked by stale positions. A purged partitioned block keeps its
+        ``part_id``. Returns the rows removed."""
+        with self._lock:
+            removed = 0
+            new_blocks = []
+            for block in self._versions[self.version]:
+                c = block.columns.get(col)
+                expired = None if c is None else c.valid & (c.data.astype(np.int64) < cutoff)
+                n = 0 if expired is None else int(expired.sum())
+                if not n:
+                    new_blocks.append(block)
+                    continue
+                removed += n
+                idx = np.flatnonzero(~expired)
+                if len(idx):
+                    new_blocks.append(_take_block(block, idx))
+            if removed:
+                self.modify_count += removed
+                self._publish(new_blocks)
+        return removed
 
     def install_commit(
         self,

@@ -5,9 +5,8 @@ CREATE TABLE prints (generated columns, CHECK and FOREIGN KEY clauses
 with their ON DELETE actions, as the JAX package renders them), and
 ``dump_table_sql``, the schema and INSERT batches of one table, read at
 one pinned version. A partitioned table's PARTITION BY RANGE, LIST or
-HASH clause is rendered as the JAX package renders it (TTL is not
-ported, so its clause never arises); the CSV format and the command line
-are not ported.
+HASH clause and its TTL clause are rendered as the JAX package renders
+them; the CSV format and the command line are not ported.
 """
 
 from __future__ import annotations
@@ -82,7 +81,11 @@ def create_table_sql(t) -> str:
         suffix = {"cascade": " on delete cascade",
                   "set_null": " on delete set null"}.get(t.fk_actions.get(nm.lower()), "")
         parts.append(f"constraint {nm} foreign key ({col}) references {rdb}.{rtbl} ({rcol}){suffix}")
-    return f"CREATE TABLE `{t.name}` (\n  " + ",\n  ".join(parts) + f"\n){_partition_sql(t)};"
+    opts = _partition_sql(t)
+    if getattr(t, "ttl", None):
+        col, iv, unit = t.ttl
+        opts += f" ttl = {col} + interval {iv} {unit}"
+    return f"CREATE TABLE `{t.name}` (\n  " + ",\n  ".join(parts) + f"\n){opts};"
 
 
 def _partition_sql(t) -> str:

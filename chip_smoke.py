@@ -13,6 +13,7 @@
     python3 chip_smoke.py --constraints-only  # phases 1-3 and the constraint phase only
     python3 chip_smoke.py --partitions-only  # phases 1-3 and the partition phase only
     python3 chip_smoke.py --loads-only     # phases 1-3 and the load phase only
+    python3 chip_smoke.py --durability-only  # phases 1-3 and the durability phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -30,10 +31,11 @@
    times, each result checked against the numpy oracles of
    tidb_tpu_torch/bench/oracles.py.
 6. Runs the window and set-operation reports W1-W5 and U1-U3
-   (oracles.REPORT_QUERIES) on the same SF10 tables, then generates the
-   TPC-DS tables of BASELINE config #5 at SF100 with the port's
-   load_tpcds(seed=1) (7.2M web_sales rows, no ANALYZE, as bench.py runs
-   it) and runs TPC-DS Q95: each cold once and warm three times, each run
+   (oracles.REPORT_QUERIES) on the same SF10 tables, then TPC-DS Q95 over
+   the TPC-DS tables of BASELINE config #5 at SF100, generated with the
+   port's load_tpcds(seed=1) beside phase 5's oracles (7.2M web_sales
+   rows, no ANALYZE, as bench.py runs it): each cold once and warm three
+   times, each run
    checked against its oracle. Each ORDER BY ... LIMIT prints the top-N
    path it took (packed key and its width, or sorted). No statement of
    phases 5 and 6 streams: SF10's tables fit one tile.
@@ -64,7 +66,7 @@
    UUID_TO_BIN/BIN_TO_UUID, COMPRESS/UNCOMPRESSED_LENGTH and
    AES_ENCRYPT/AES_DECRYPT round trips; X9, a WITH RECURSIVE date spine
    over 1995 left-joined to orders (365 recursive steps, their seconds
-   printed); each cold once and warm three times, every run checked
+   printed); each cold once and warm once, every run checked
    against its numpy oracle, with the host seconds of the dictionary
    tables (REGEXP, JSON, INET, AES) of each cold run. X10: EXPLAIN of the
    22 TPC-H queries (Q1, Q3 and Q18's lines printed) and EXPLAIN ANALYZE
@@ -98,7 +100,7 @@
    LAST_INSERT_ID() restarting, DROPped); TPC-H RF1 (SF x 1500 = 15,000
    new orders and their one to seven line items, INSERT ... VALUES in
    batches of 1,000 rows, one transaction, one batch growing o_comment's
-   dictionary); Q1, Q6, Q3 and Q18, each cold once and warm three times;
+   dictionary); Q1, Q6, Q3 and Q18, each cold once and warm once;
    UPDATEs of the new orders' o_orderstatus and l_extendedprice (* 1.05,
    a DECIMAL through CAST) in batches of 1,000 keys, each asserted to
    take the columnar path, then Q1 and Q6; a DELETE of 1,000 orders' line
@@ -254,6 +256,38 @@
    with both workers. Each step prints its seconds, its statements'
    seconds, host->device bytes and launches; the phase its seconds
    against its 60 s.
+   Then the durability phase, in database tpch_d over the SF10 tables'
+   blocks (region, nation, supplier and customer with TPC-H's keys and
+   FOREIGN KEYs; a cut of scale: BACKUP deflates on the host, and the
+   whole SF10 database would take minutes): D1 adds a CHECK, supplier_p
+   (RANGE by s_nationkey into five), ev (100,000 rows, a TTL of 90
+   days), a view, a sequence and the user br_reader, and runs BACKUP
+   DATABASE tpch_d (its seconds, bytes written and MB/s); D2 arms
+   persist/backup-table to fail at the second table of a BACKUP into a
+   second directory (it fails, checkpoint.json stays) and backs up again
+   (only the tables not checkpointed are written), on a thread beside
+   D3; D3 boots `python3 -m tidb_tpu_torch.tidb_server --path <D1's
+   directory> --config <toml> --status-port 0 -P 0` with
+   TIDB_TPU_RACECHECK=1, the script's cached columns released first,
+   reads /status, /schema/tpch_d/customer, /settings and /metrics's
+   refusal, has a client in another process run the segment report
+   (against numpy), 1,000 INSERTed customers, 1,000 UPDATEd balances, a
+   DELETE from supplier_p and two NEXTVALs, logs in as br_reader (the
+   manifest's user: a SELECT answers, an INSERT is refused), then
+   SIGTERMs it (exit 0 after its snapshot, whose seconds and MB/s it
+   prints); D4 RESTOREs
+   that directory over the live tpch_d and checks row counts and the
+   125-group report against numpy with D3's writes, NEXTVAL after the
+   binary's, SHOW CREATE TABLE's TTL and partitions, supplier_p's
+   pruning, br_reader's grants, ADMIN CHECK and ADMIN CHECKSUM against
+   tpch's; D5 has a SLEEP(30) ended by the instance watchdog within two
+   of its intervals after SET GLOBAL tidb_server_memory_limit goes below
+   the process's RSS (the kill in information_schema.memory_usage_ops_
+   history, memory_usage's total equal to /proc/meminfo's MemTotal,
+   printed beside the phase), then the limit back at '0' and the
+   watchdog stopped and joined. Each step prints its seconds, its
+   statements' seconds, host->device bytes and launches; the phase its
+   seconds against its 60 s (DURABILITY_LIMIT_S).
 7. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs phases 5 and 6 gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
@@ -281,7 +315,8 @@
    bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
    Phases 5, 6, the builtins, statements, server, refresh, operator,
-   index, constraint, partition and load phases and 8 each show that every
+   index, constraint, partition, load and durability phases and 8 each
+   show that every
    kernel launched
    there: launch counts
    are zeroed just before a phase's runs and read just after them.
@@ -292,13 +327,13 @@ l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
 --spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only,
 --statements-only, --operator-only, --indexes-only, --constraints-only,
---partitions-only and --loads-only generate and ANALYZE the SF10 tables
-and run that one phase. None of them prints the last line.
+--partitions-only, --loads-only and --durability-only generate and
+ANALYZE the SF10 tables and run that one phase. None of them prints the last line.
 
 Before the kernels line the full run prints one `phases:` line: every
 phase's seconds (datagen within its phase), the script's total from its
 start, and whether the partition phase kept to its 100 s and the load
-phase to its 60 s.
+and durability phases to their 60 s.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -759,9 +794,11 @@ def kernel_rows(seen, launches):
         "launches": launches and launches["slot_sums"], "max_abs_err": err,
         "ms": cuda_time_ms(lambda: K.slot_sums(v, c, g, s), 10),
         "device_ms": dev_ms, "kernels_per_call": per_call,
-        "plain_ms": cuda_time_ms(lambda: K.slot_sums_plain(v, c, g, s), 10),
+        # the plain version and the library call take ~0.3 s a call: three
+        # calls give their mean
+        "plain_ms": cuda_time_ms(lambda: K.slot_sums_plain(v, c, g, s), 3),
         **bound(nbytes, adds),
-        "library_ms": cuda_time_ms(lambda: lib_out.index_add_(1, idx, masked), 10),
+        "library_ms": cuda_time_ms(lambda: lib_out.index_add_(1, idx, masked), 3),
         "shape": {"A": a, "N": n, "S": s, "dtype": str(v.dtype)},
     })
     del v, c, g, in_table, idx, masked, lib_out
@@ -805,12 +842,13 @@ def kernel_rows(seen, launches):
 TPCDS_TABLES = ["web_sales", "web_returns", "date_dim", "customer_address", "web_site"]
 
 
-def q95_check(cat):
-    """Q95's rows against the vectorized oracle: the order count exactly,
-    the sums (cents) within 1e-12 relative."""
+def q95_check(cat, oracle=None):
+    """Q95's rows against the vectorized oracle (`oracle`, when computed
+    already): the order count exactly, the sums (cents) within 1e-12
+    relative."""
     from tidb_tpu_torch.bench.oracles import numpy_q95, same_value
 
-    want = []
+    want = [] if oracle is None else [oracle]
 
     def check(res):
         if not want:
@@ -913,9 +951,14 @@ SPILL_QUOTA = 1 << 30
 #: warm runs of each SF100 statement after its cold run
 SPILL_WARM_RUNS = 1
 #: threads the numpy oracles run on before a phase's timed runs: SF10's
-#: each take at most a few GB; SF100's Q18 oracle alone ~15 GB, with
-#: ~47 GB of the host free after the SF100 data
-ORACLE_THREADS = 4
+#: each take at most a few GB (7 of the card host's 8 cores; numpy lets
+#: the interpreter lock go in its passes); SF100's Q18 oracle alone
+#: ~15 GB, with ~47 GB of the host free after the SF100 data
+ORACLE_THREADS = 7
+#: warm runs of each statement of the statements and refresh phases: they
+#: measure cold costs (dictionary tables, copies after a write) and one
+#: warm run beside them; the TPC-H and builtins phases keep three
+PHASE_WARM_RUNS = 1
 SPILL_ORACLE_THREADS = 3
 
 
@@ -992,7 +1035,24 @@ def sf10_phases(args, seen, report) -> dict:
     queries = [(name, sql, check, sess) for name, sql, check in queries]
     slice6 = [(name, q.sql, oracle_check(cat, q, {}, pool), sess)
               for name, q in REPORT_QUERIES.items()]
-    oracles_first(pool, f"TPC-H SF{SF:g} and the reports", ORACLE_THREADS)
+
+    def tpcds():
+        # TPC-DS's own generator and seed: its tables and Q95's oracle
+        # beside TPC-H's oracles
+        t1 = time.perf_counter()
+        ds = Catalog()
+        load_tpcds(ds, sf=TPCDS_SF, seed=1)
+        log(f"datagen: TPC-DS SF{TPCDS_SF:g}, " + ", ".join(
+            f"{t} {ds.table('test', t).nrows}" for t in TPCDS_TABLES
+        ) + f" rows in {time.perf_counter() - t1:.1f}s")
+        t1 = time.perf_counter()
+        want = O.numpy_q95(ds)
+        log(f"  oracle: {want} in {time.perf_counter() - t1:.1f}s")
+        return ds, want
+
+    ds_fut = pool.submit(tpcds)
+    oracles_first(pool, f"TPC-H SF{SF:g}, the reports, TPC-DS SF{TPCDS_SF:g} and Q95",
+                  ORACLE_THREADS)
 
     def analyze_first(name):
         if name == "q3":
@@ -1008,13 +1068,9 @@ def sf10_phases(args, seen, report) -> dict:
 
     # --- 6. main path: window and set-operation reports, TPC-DS Q95 ---
     t0 = time.perf_counter()
-    ds = Catalog()
-    load_tpcds(ds, sf=TPCDS_SF, seed=1)
-    log(f"datagen: TPC-DS SF{TPCDS_SF:g}, " + ", ".join(
-        f"{t} {ds.table('test', t).nrows}" for t in TPCDS_TABLES
-    ) + f" rows in {time.perf_counter() - t0:.1f}s")
+    ds, q95_want = ds_fut.result()
     ds_sess = Session(ds, db="test")
-    slice6.append(("q95", Q95_SQL, q95_check(ds), ds_sess))
+    slice6.append(("q95", Q95_SQL, q95_check(ds, q95_want), ds_sess))
 
     def base6(name):
         if name == "q95":
@@ -1022,7 +1078,7 @@ def sf10_phases(args, seen, report) -> dict:
         return cat.table("tpch", REPORT_BASE_TABLE[name])
 
     launches["reports_q95"] = run_phase(slice6, report, base6)
-    phase_s["reports_q95"] = time.perf_counter() - t0  # TPC-DS datagen included
+    phase_s["reports_q95"] = time.perf_counter() - t0  # TPC-DS datagen: with the oracles
     A.slot_sums, A.prefix_sum = K.slot_sums, K.prefix_sum
     streamed = [n for n, _s, _c, _q in queries + slice6 if report[n]["stream"]]
     assert not streamed, f"SF10/TPC-DS statements streamed: {streamed}"
@@ -1066,6 +1122,11 @@ def sf10_phases(args, seen, report) -> dict:
     # TTL and the background workers over the same SF10 tables ---
     timed("loads", load_phase, cat, sess, report)
 
+    # --- the durability phase: BACKUP / RESTORE, the server binary's
+    # --path across a restart, the status API and the watchdog over the
+    # same SF10 tables ---
+    timed("durability", durability_phase, cat, sess, report)
+
     if args.profile:
         for name, sql, _check, qs in queries + slice6:
             profile_query(qs, name, sql, args.profile)
@@ -1079,7 +1140,8 @@ BUILTINS_LIMIT_S = 120.0
 def builtins_phase(cat, sess, report) -> dict:
     """The builtins phase: the BI reports B1-B9 (oracles.BUILTIN_REPORTS)
     over the SF10 tables through `sess`, each cold once and warm three
-    times and every run checked against its numpy oracle. Prints per
+    times, every run checked against its numpy oracle, the oracles
+    computed on threads before the timed runs. Prints per
     report the warm ms, cold s, the host seconds spent building dictionary
     tables during the cold run (warm runs reuse the compiled plan's),
     fetches and host->device bytes per warm run, and the phase's kernel
@@ -1097,8 +1159,11 @@ def builtins_phase(cat, sess, report) -> dict:
 
         return first
 
-    queries = [(f"builtins_{n}", q.sql, lut_after_cold(f"builtins_{n}", oracle_check(cat, q, {})),
-                sess) for n, q in BUILTIN_REPORTS.items()]
+    pool = ThreadPoolExecutor(ORACLE_THREADS)
+    queries = [(f"builtins_{n}", q.sql,
+                lut_after_cold(f"builtins_{n}", oracle_check(cat, q, {}, pool)), sess)
+               for n, q in BUILTIN_REPORTS.items()]
+    oracles_first(pool, "builtins B1-B9", ORACLE_THREADS)
     launches = run_phase(
         queries, report, lambda n: cat.table("tpch", BUILTIN_BASE_TABLE[n[len("builtins_"):]]),
         before=lambda n: EK.reset_lut_stats())
@@ -1144,8 +1209,8 @@ EXPLAIN_ANALYZED = ("q1", "q3", "q18")
 def statements_phase(cat, sess, report) -> dict:
     """The statements phase: X1-X9 (oracles.STATEMENT_QUERIES) over the
     SF10 tables through `sess`, X7's profile table and X8's access log
-    made first, each statement cold once and warm three times and every
-    run checked against its numpy oracle; X7's refused writes; X10's
+    made first, each statement cold once and warm once (PHASE_WARM_RUNS)
+    and every run checked against its numpy oracle; X7's refused writes; X10's
     EXPLAIN and EXPLAIN ANALYZE. Both tables are dropped at the end.
     Returns the phase's kernel launches (from the first of X1-X9's runs to
     the last EXPLAIN ANALYZE)."""
@@ -1200,7 +1265,7 @@ def statements_phase(cat, sess, report) -> dict:
     oracles_first(pool, "statements X1-X9", ORACLE_THREADS)
     run_phase(
         queries, report, lambda n: cat.table("tpch", O.STATEMENT_BASE_TABLE[n[len("stmt_"):]]),
-        before=lambda n: EK.reset_lut_stats())
+        before=lambda n: EK.reset_lut_stats(), warm_runs=PHASE_WARM_RUNS)
     for name, *_ in queries:
         r = report[name]
         r["lut_build_s"], r["lut_tables"] = luts[name]["seconds"], luts[name]["tables"]
@@ -1662,13 +1727,23 @@ def stop_binary(proc) -> int:
         raise
 
 
-#: a MysqlWire client in a process of its own: argv port, SQL; prints the
-#: rows and each run's wire seconds as JSON
+#: a MysqlWire client in a process of its own: argv a file the server's
+#: port will be written to, and the SQL; it imports while the phase runs,
+#: waits for the port, and prints the rows and each run's wire seconds as
+#: JSON
 CLIENT_CHILD = """
-import json, sys
+import json, os, sys, time
 sys.path.insert(0, {root!r})
 import chip_smoke
-c = chip_smoke.MysqlWire(int(sys.argv[1]), db="tpch")
+from tidb_tpu_torch.server import protocol  # noqa: F401 (MysqlWire's import, before the wait)
+deadline = time.monotonic() + 900
+while not os.path.exists(sys.argv[1]):
+    if time.monotonic() > deadline:
+        sys.exit("no port")
+    time.sleep(0.05)
+with open(sys.argv[1]) as f:
+    port = int(f.read())
+c = chip_smoke.MysqlWire(port, db="tpch")
 wire = []
 for _ in range(chip_smoke.R1_WIRE_RUNS):
     _cols, rows, secs = c.query(sys.argv[2])
@@ -1700,6 +1775,9 @@ def server_phase(cat, blk, sess, checks, report) -> dict:
     """The server phase: the port's MySQL server on the card over the SF10
     tables phase 5 left resident, driven by MysqlWire. Returns the phase's
     launches."""
+    import shutil
+    import tempfile
+
     from tidb_tpu_torch.bench import load_tpch
     from tidb_tpu_torch.bench.oracles import (
         R1_SQL, SPILL_REPORTS, numpy_q1, numpy_q6,
@@ -1729,6 +1807,13 @@ def server_phase(cat, blk, sess, checks, report) -> dict:
     K.reset_launches()
     srv = Server(cat, port=0)
     srv.start_background()
+    # R1's client in a process of its own, importing while the text
+    # protocol runs below
+    port_dir = tempfile.mkdtemp(prefix="chip_smoke_server_", dir=tempfile.gettempdir())
+    port_file = os.path.join(port_dir, "port")
+    child = subprocess.Popen(
+        [sys.executable, "-c", CLIENT_CHILD.format(root=ROOT), port_file, R1_SQL],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
     try:
         # --- a client's first words ---
         c = MysqlWire(srv.port)
@@ -1754,12 +1839,12 @@ def server_phase(cat, blk, sess, checks, report) -> dict:
 
         # R1 from a client in a process of its own: no interpreter lock
         # shared between the client's reads and the server's writes
-        child = subprocess.run(
-            [sys.executable, "-c", CLIENT_CHILD.format(root=ROOT), str(srv.port), R1_SQL],
-            capture_output=True, text=True, cwd=ROOT, timeout=900,
-        )
-        assert child.returncode == 0, child.stderr[-3000:]
-        sep = json.loads(child.stdout.strip().splitlines()[-1])
+        with open(port_file + ".tmp", "w") as f:
+            f.write(str(srv.port))
+        os.replace(port_file + ".tmp", port_file)
+        child_out, child_err = child.communicate(timeout=900)
+        assert child.returncode == 0, child_err[-3000:]
+        sep = json.loads(child_out.strip().splitlines()[-1])
         r1_check(types.SimpleNamespace(rows=[tuple(r) for r in sep["rows"]]))
         out["r1_other_process"] = {"rows": len(sep["rows"]), "wire_s": sep["wire_s"],
                                    "rows_per_s": len(sep["rows"]) / float(np.median(sep["wire_s"]))}
@@ -1842,24 +1927,36 @@ def server_phase(cat, blk, sess, checks, report) -> dict:
                              "wire_s": {n: [s for _c, _r, s in got[n]] for n in names}}
         log("server concurrent: " + json.dumps(out["concurrent"]))
     finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        shutil.rmtree(port_dir, ignore_errors=True)
         srv.shutdown()
     launches = dict(K.LAUNCHES)
 
     # --- the binary ---
-    t0 = time.perf_counter()
-    proc, port = start_binary(BINARY_SF)
-    try:
-        started = time.perf_counter() - t0
-        w = MysqlWire(port, db="tpch")
-        _cols, rows, secs = w.query(checks["q1"][0])
-        w.close()
+    def sf1_oracle():
         sf1 = Catalog()
         load_tpch(sf1, sf=BINARY_SF, tables=["orders", "lineitem"])
         blk1, li1 = raw_columns(sf1, ["l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
                                       "l_extendedprice", "l_discount", "l_tax"])
-        check_q1(types.SimpleNamespace(rows=rows), numpy_q1(blk1), li1)
-    finally:
-        rc = stop_binary(proc)
+        return numpy_q1(blk1), li1
+
+    # the same SF1 data generated here for the oracle, on a thread while
+    # the binary generates its own and boots
+    with ThreadPoolExecutor(1) as one:
+        oracle1 = one.submit(sf1_oracle)
+        t0 = time.perf_counter()
+        proc, port = start_binary(BINARY_SF)
+        try:
+            started = time.perf_counter() - t0
+            want1, li1 = oracle1.result()
+            w = MysqlWire(port, db="tpch")
+            _cols, rows, secs = w.query(checks["q1"][0])
+            w.close()
+            check_q1(types.SimpleNamespace(rows=rows), want1, li1)
+        finally:
+            rc = stop_binary(proc)
     assert rc == 0, rc
     out["binary"] = {"sf": BINARY_SF, "start_s": started, "q1_cold_s": secs, "exit": rc}
     log("server binary: " + json.dumps(out["binary"]))
@@ -2122,8 +2219,11 @@ def refresh_phase(cat, sess, report) -> dict:
             [label or sql.split(" (")[0][:60], secs, res.affected])
         return res
 
-    def queries(step, names, warm_runs=3):
-        checks = checks_now(names)
+    def queries(step, names, warm_runs=PHASE_WARM_RUNS, checks=None):
+        """Each of `names` cold once and warm `warm_runs` times, every run
+        checked (against `checks` when given, else the oracles of now);
+        returns the checks."""
+        checks = checks or checks_now(names)
         rows = out["queries"].setdefault(step, {})
         for name in names:
             torch.cuda.synchronize()
@@ -2144,6 +2244,7 @@ def refresh_phase(cat, sess, report) -> dict:
             rows[name] = {"cold_s": cold, "warm_ms": warm, "h2d_bytes_cold": h2d_cold,
                           "d2h_fetches_per_warm_run": (TRANSFERS["d2h_fetches"] - f0) / max(warm_runs, 1)}
             log(f"refresh {step} {name}: " + json.dumps(rows[name]))
+        return checks
 
     def unwritten(step):
         h0 = TRANSFERS["h2d_bytes"]
@@ -2240,7 +2341,7 @@ def refresh_phase(cat, sess, report) -> dict:
     li = ora["lineitem"]
     step_done("update", t0)
     t0 = time.perf_counter()
-    queries("update", ["q1", "q6"])
+    update_checks = queries("update", ["q1", "q6"])
     step_done("after_update", t0)
 
     # --- 4. a rolled-back DELETE ---
@@ -2255,18 +2356,24 @@ def refresh_phase(cat, sess, report) -> dict:
     note_shadows()
     stmt("rollback", "rollback")
     assert sess.execute("select count(*) from lineitem").rows == [(n_li,)]
-    queries("rollback", ["q1"], warm_runs=0)
+    # the rolled-back DELETE leaves the rows the UPDATEs left: their oracles
+    queries("rollback", ["q1"], warm_runs=0, checks=update_checks)
     step_done("rollback", t0)
 
     # --- 5. RF2: one transaction, batches of RF_BATCH keys ---
     t0 = time.perf_counter()
     old = np.arange(1, RF_ORDERS + 1, dtype=np.int64)
     stmt("rf2", "begin")
+    # each batch's line items, counted in one pass over lineitem's keys
+    # (old holds the keys 1..RF_ORDERS, RF_BATCH to a batch)
+    lk = li["l_orderkey"]
+    in_old = (lk >= 1) & (lk <= RF_ORDERS)
+    per_batch = np.bincount((lk[in_old] - 1) // RF_BATCH, minlength=-(-RF_ORDERS // RF_BATCH))
     for lo in range(0, RF_ORDERS, RF_BATCH):
         batch = old[lo:lo + RF_BATCH]
         in_list = ", ".join(str(int(k)) for k in batch)
         stmt("rf2", f"delete from lineitem where l_orderkey in ({in_list})",
-             int(np.isin(li["l_orderkey"], batch).sum()), "delete lineitem")
+             int(per_batch[lo // RF_BATCH]), "delete lineitem")
         stmt("rf2", f"delete from orders where o_orderkey in ({in_list})", len(batch),
              "delete orders")
     note_shadows()
@@ -4995,6 +5102,575 @@ def loads_only(report) -> dict:
     return launches
 
 
+#: the durability phase's time limit (seconds)
+DURABILITY_LIMIT_S = 60.0
+#: the database the durability phase declares its tables in
+DDB = "tpch_d"
+#: the SF10 tables it backs up, parents before children. A cut of scale:
+#: BACKUP deflates on the host (np.savez_compressed, the JAX package's
+#: format), ~12 s for customer's 1.5M rows, and the whole SF10 database
+#: (86.6M rows) would take minutes
+DURABILITY_TABLES = ["region", "nation", "supplier", "customer"]
+#: rows of the TTL table ev, every ts after the run's clock
+EV_ROWS = 100_000
+#: D3's writes over the wire: new customers, balances raised by 1.00,
+#: the nation whose suppliers leave supplier_p
+D3_NEW_CUSTOMERS = 1000
+D3_UPDATED = 1000
+D3_DELETED_NATION = 3
+#: supplier_p's RANGE bounds over s_nationkey (five partitions, the last
+#: MAXVALUE)
+SUPPLIER_P_BOUNDS = [5, 10, 15, 20]
+#: the read whose EXPLAIN shows supplier_p's pruning
+SUPPLIER_P_PRUNED_SQL = f"select count(*), sum(s_acctbal) from {DDB}.supplier_p where s_nationkey < 5"
+#: D3's segment report (5 groups) and D4's report (25 nations x 5 segments)
+DURABILITY_SEGMENT_SQL = (f"select c_mktsegment, count(*), sum(c_acctbal) from {DDB}.customer "
+                          "group by c_mktsegment")
+DURABILITY_REPORT_SQL = (f"select c_nationkey, c_mktsegment, count(*), sum(c_acctbal) "
+                         f"from {DDB}.customer group by c_nationkey, c_mktsegment")
+#: the SLEEP the watchdog ends in D5 (seconds)
+D5_SLEEP_S = 30
+
+#: D3's MySQL client in a process of its own, started beside the binary:
+#: argv a file the server's port will be written to, then a JSON list of
+#: [kind, key, sql] ("query" or "write"); it imports while the binary
+#: boots, waits for the port, runs the list and prints the results and
+#: its seconds from the port's arrival as JSON
+DURABILITY_CLIENT = """
+import json, os, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke
+from tidb_tpu_torch.server import protocol  # noqa: F401 (MysqlWire's import, before the wait)
+deadline = time.monotonic() + 600
+while not os.path.exists(sys.argv[1]):
+    if time.monotonic() > deadline:
+        sys.exit("no port")
+    time.sleep(0.05)
+t0 = time.perf_counter()
+with open(sys.argv[1]) as f:
+    port = int(f.read())
+c = chip_smoke.MysqlWire(port, db={db!r})
+out = {{}}
+for kind, key, sql in json.loads(sys.argv[2]):
+    if kind == "query":
+        _cols, rows, secs = c.query(sql)
+        out[key] = {{"rows": rows, "s": secs}}
+    else:
+        affected, _last, secs = c.write(sql)
+        out[key] = {{"affected": affected, "s": secs}}
+c.close()
+out["client_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def durability_ddl(cat) -> list:
+    """tpch_d's DDL: region, nation, supplier and customer with TPC-H's
+    primary keys and their FOREIGN KEYs (each *_nationkey to nation,
+    n_regionkey to region), a CHECK on s_acctbal; supplier_p, supplier's
+    columns RANGE-partitioned by s_nationkey into five; ev with a TTL; a
+    view over customer; a sequence; and the user br_reader, who may read
+    tpch_d."""
+    out = [f"create database {DDB}"]
+    for name in DURABILITY_TABLES:
+        t = cat.table("tpch", name)
+        parts = [f"{c} {_sql_type(ty)}" for c, ty in t.schema.columns]
+        parts.append("primary key (" + ", ".join(t.schema.primary_key) + ")")
+        parts += [f"constraint {col}_fk foreign key ({col}) references {parent} ({pcol})"
+                  for tbl, col, parent, pcol, _act in TPCH_FKS
+                  if tbl == name and parent in DURABILITY_TABLES]
+        if name == "supplier":
+            parts.append("constraint s_acctbal_floor check (s_acctbal >= -999.99)")
+        out.append(f"create table {DDB}.{name} (" + ", ".join(parts) + ")")
+    cols = ", ".join(f"{c} {_sql_type(ty)}" for c, ty in cat.table("tpch", "supplier").schema.columns)
+    parts = [f"partition p{i} values less than ({b})" for i, b in enumerate(SUPPLIER_P_BOUNDS)]
+    parts.append(f"partition p{len(SUPPLIER_P_BOUNDS)} values less than maxvalue")
+    out.append(f"create table {DDB}.supplier_p ({cols}) partition by range (s_nationkey) ("
+               + ", ".join(parts) + ")")
+    out.append(f"create table {DDB}.ev (id bigint primary key, ts datetime) "
+               "ttl = ts + interval 90 day")
+    out.append(f"create view {DDB}.rich as select c_custkey, c_nationkey, c_acctbal "
+               f"from {DDB}.customer where c_acctbal > 9000")
+    out.append(f"create sequence {DDB}.seq")
+    out.append("create user br_reader")
+    out.append(f"grant select on {DDB}.* to br_reader")
+    return out
+
+
+def new_customers_sql(cat, n: int, first_key: int) -> tuple:
+    """INSERT of `n` customers with keys from `first_key`, and their
+    (c_custkey, c_nationkey, c_mktsegment code, c_acctbal in cents)."""
+    from tidb_tpu_torch.dtypes import Kind
+
+    t = cat.table("tpch", "customer")
+    segments = list(t.dictionaries["c_mktsegment"])
+    i = np.arange(n, dtype=np.int64)
+    key, nation, seg, cents = first_key + i, i % 25, i % len(segments), (i * 7919) % 1_000_000
+    rows = []
+    for j in range(n):
+        vals = []
+        for c, ty in t.schema.columns:
+            if c == "c_custkey":
+                vals.append(str(int(key[j])))
+            elif c == "c_nationkey":
+                vals.append(str(int(nation[j])))
+            elif c == "c_acctbal":
+                vals.append(f"{int(cents[j]) // 100}.{int(cents[j]) % 100:02d}")
+            elif c == "c_mktsegment":
+                vals.append(f"'{segments[seg[j]]}'")
+            elif ty.kind == Kind.STRING:
+                vals.append(f"'d3 {c} {j}'")
+            else:
+                vals.append(str(j))
+        rows.append("(" + ", ".join(vals) + ")")
+    sql = "insert into customer values " + ", ".join(rows)
+    return sql, {"c_custkey": key, "c_nationkey": nation, "c_mktsegment": seg, "c_acctbal": cents}
+
+
+def meminfo_total() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def durability_phase(cat, sess, report) -> dict:
+    """The durability phase over the SF10 tables, in database tpch_d. D1
+    declares region, nation, supplier and customer with TPC-H's keys and
+    FOREIGN KEYs over the tpch tables' blocks, a CHECK, supplier_p (RANGE
+    by s_nationkey into five), ev (100,000 rows from the seed, every ts
+    after the run's clock, TTL 90 days), a view, a sequence and a user,
+    then BACKs the database UP; D2 backs it up into a second directory
+    with persist/backup-table armed to fail at its second table (the
+    statement fails, checkpoint.json stays), then again (only the tables
+    not checkpointed are written); D3 boots the server binary over D1's
+    directory (--path, --config, --status-port, TIDB_TPU_RACECHECK=1),
+    reads the status API, has a client in another process run the segment
+    report, an INSERT of 1,000 customers, an UPDATE of 1,000 balances, a
+    DELETE from supplier_p and two NEXTVALs, and SIGTERMs it: the binary
+    snapshots and exits 0. D2 runs on a thread of its own beside D3 (the
+    binary is another process). D4 RESTOREs D1's directory, which now
+    holds D3's writes, over the live tpch_d, and checks it against numpy
+    and the state D1 declared; D5 has the instance watchdog end a
+    SLEEP(30) at a server memory limit below the process's RSS. Every
+    result is checked; each step prints its seconds, its statements'
+    seconds, the bytes written or read, host->device bytes and kernel
+    launches. The directories go under tempfile.gettempdir() and are
+    removed; the database is dropped at the end. Returns the phase's
+    launches."""
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from tidb_tpu_torch.chunk import TRANSFERS, HostBlock, HostColumn
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import scan
+    from tidb_tpu_torch.utils import failpoint
+    from tidb_tpu_torch.utils.sqlkiller import QueryKilled
+    from tidb_tpu_torch.utils.watchdog import host_memory as wd_host_memory
+
+    out = report["durability"] = {}
+    t_phase = time.perf_counter()
+    mem_total = meminfo_total()
+    log(f"durability: card {card_line()}, host MemTotal {mem_total} B")
+    K.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_br_", dir=tempfile.gettempdir())
+    bk, bk2 = os.path.join(tmp, "backup"), os.path.join(tmp, "backup2")
+
+    def dir_bytes(path):
+        return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+    def step(name, fn):
+        """Run fn, recording under `name` its seconds, its statements'
+        seconds alone (``stmt_s``), host->device bytes, launches and what
+        fn returns."""
+        stmt = {"s": 0.0, "depth": 0}
+
+        def timed(f):
+            def run(*a, **kw):
+                stmt["depth"] += 1
+                t2 = time.perf_counter()
+                try:
+                    return f(*a, **kw)
+                finally:
+                    torch.cuda.synchronize()
+                    stmt["depth"] -= 1
+                    if not stmt["depth"]:
+                        stmt["s"] += time.perf_counter() - t2
+            return run
+
+        torch.cuda.synchronize()
+        h0, t1, l0 = TRANSFERS["h2d_bytes"], time.perf_counter(), dict(K.LAUNCHES)
+        sess.execute = timed(sess.execute)
+        try:
+            extra = fn() or {}
+        finally:
+            del sess.execute
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t1, "stmt_s": stmt["s"],
+                     "h2d_bytes": TRANSFERS["h2d_bytes"] - h0,
+                     "launches": {k: K.LAUNCHES[k] - l0[k] for k in K.LAUNCHES}, **extra}
+        log(f"durability {name}: " + json.dumps(out[name]))
+
+    def one(sql):
+        (row,) = sess.execute(sql).rows
+        return row
+
+    arr = capture_arrays(cat, {"customer": ["c_custkey", "c_nationkey", "c_mktsegment",
+                                            "c_acctbal"],
+                               "supplier": ["s_nationkey"]})
+    seg_dict = cat.table("tpch", "customer").dictionaries["c_mktsegment"]
+
+    def report_want(c, by_nation: bool):
+        g = c["c_mktsegment"].astype(np.int64)
+        if by_nation:
+            g = c["c_nationkey"].astype(np.int64) * len(seg_dict) + g
+        size = (25 if by_nation else 1) * len(seg_dict)
+        cnt = np.bincount(g, minlength=size)
+        tot = np.zeros(size, dtype=np.int64)
+        np.add.at(tot, g, c["c_acctbal"].astype(np.int64))
+        key = ((lambda k: (k // len(seg_dict), str(seg_dict[k % len(seg_dict)]))) if by_nation
+               else (lambda k: str(seg_dict[k])))
+        return {key(k): (int(cnt[k]), int(tot[k])) for k in np.flatnonzero(cnt)}
+
+    def report_got(rows, by_nation: bool):
+        return {((int(r[0]), r[1]) if by_nation else r[0]):
+                (int(r[-2]), round(float(r[-1]) * 100)) for r in rows}
+
+    now_us = int(time.time() * 1e6)
+
+    # --- D1: declare and BACKUP ---
+    def d1():
+        for sql in durability_ddl(cat):
+            sess.execute(sql)
+        for name in DURABILITY_TABLES:
+            src, dst = cat.table("tpch", name), cat.table(DDB, name)
+            dst.dictionaries.update(src.dictionaries)
+            # blocks of their own over the same arrays
+            dst.replace_blocks([HostBlock(dict(b.columns), b.nrows, part_id=b.part_id)
+                                for b in src.blocks()])
+        n_sp = sess.execute(f"insert into {DDB}.supplier_p select * from {DDB}.supplier").affected
+        assert n_sp == len(arr["supplier"]["s_nationkey"]), n_sp
+        rng = np.random.default_rng(18)
+        ev = cat.table(DDB, "ev")
+        ts = now_us + 86_400_000_000 + rng.integers(0, 365 * 86_400_000_000, EV_ROWS)
+        ones = np.ones(EV_ROWS, dtype=bool)
+        ev.append_block(HostBlock.from_columns({
+            "id": HostColumn(ev.schema.types["id"], np.arange(1, EV_ROWS + 1, dtype=np.int64), ones),
+            "ts": HostColumn(ev.schema.types["ts"], ts.astype(np.int64), ones)}))
+        assert one(f"select nextval({DDB}.seq)") == (1,)
+        pruned = _explain_lists(sess, SUPPLIER_P_PRUNED_SQL)
+        assert pruned == ["[p0]"], pruned
+        got = report_got(sess.execute(DURABILITY_SEGMENT_SQL).rows, False)
+        assert got == report_want(arr["customer"], False), got
+        t0 = time.perf_counter()
+        sess.execute(f"backup database {DDB} to '{bk}'")
+        backup_s = time.perf_counter() - t0
+        nbytes = dir_bytes(bk)
+        files = sorted(os.listdir(bk))
+        assert files == sorted([f"{DDB}.{n}.npz" for n in cat.tables(DDB)] + ["manifest.json"]), files
+        rows = {n: cat.table(DDB, n).nrows for n in cat.tables(DDB)}
+        return {"rows": rows, "backup_s": backup_s, "bytes_written": nbytes,
+                "mb_per_s": nbytes / backup_s / 1e6, "pruned": pruned}
+
+    step("d1_declare_backup", d1)
+
+    # --- D2 (on a thread, beside D3): an interrupted BACKUP resumes ---
+    d2_out = {}
+
+    def d2():
+        s2 = Session(cat, db=DDB)
+        t0 = time.perf_counter()
+        failpoint.enable("persist/backup-table",
+                         failpoint.after_n(2, failpoint.FailpointError))
+        try:
+            try:
+                s2.execute(f"backup database {DDB} to '{bk2}'")
+                raise AssertionError("the armed BACKUP did not fail")
+            except failpoint.FailpointError as e:
+                d2_out["error"] = str(e)
+        finally:
+            failpoint.disable("persist/backup-table")
+        failed_s = time.perf_counter() - t0
+        assert os.path.exists(os.path.join(bk2, "checkpoint.json"))
+        before = {f: os.stat(os.path.join(bk2, f)).st_mtime_ns
+                  for f in os.listdir(bk2) if f.endswith(".npz")}
+        t0 = time.perf_counter()
+        s2.execute(f"backup database {DDB} to '{bk2}'")
+        resume_s = time.perf_counter() - t0
+        after = {f: os.stat(os.path.join(bk2, f)).st_mtime_ns
+                 for f in os.listdir(bk2) if f.endswith(".npz")}
+        rewritten = sorted(f for f in after if before.get(f) != after[f])
+        assert not os.path.exists(os.path.join(bk2, "checkpoint.json"))
+        assert sorted(before) == [f"{DDB}.customer.npz"], before
+        assert rewritten == sorted(set(after) - set(before)) and len(after) == len(
+            cat.tables(DDB)), (rewritten, after)
+        d2_out.update({"failed_s": failed_s, "checkpointed": sorted(before),
+                       "resume_s": resume_s, "rewritten": rewritten,
+                       "bytes_written": dir_bytes(bk2)})
+
+    d2_err = []
+
+    def d2_thread():
+        t0 = time.perf_counter()
+        try:
+            d2()
+        except BaseException as e:  # re-raised on the phase's thread
+            d2_err.append(e)
+        d2_out["s"] = time.perf_counter() - t0
+
+    # --- D3: the server binary, durable across a restart ---
+    new_sql, new = new_customers_sql(cat, D3_NEW_CUSTOMERS,
+                                     int(arr["customer"]["c_custkey"].max()) + 1)
+    n_deleted = int((arr["supplier"]["s_nationkey"] == D3_DELETED_NATION).sum())
+
+    def d3():
+        gc.collect()
+        freed = scan.release()
+        torch.cuda.empty_cache()
+        th2 = d2_holder[0] = threading.Thread(target=d2_thread, name="chip-smoke-d2")
+        th2.start()
+        toml = os.path.join(tmp, "server.toml")
+        with open(toml, "w") as f:
+            f.write("auto_analyze_interval_s = 5.0\n[variables]\ntidb_slow_log_threshold = 450\n")
+        env = dict(os.environ, TIDB_TPU_RACECHECK="1")
+        port_file = os.path.join(tmp, "port")
+        script = [["query", "segment", DURABILITY_SEGMENT_SQL.replace(f"{DDB}.", "")],
+                  ["write", "insert", new_sql],
+                  ["write", "update", "update customer set c_acctbal = c_acctbal + 1 "
+                                      f"where c_custkey <= {D3_UPDATED}"],
+                  ["write", "delete", "delete from supplier_p where s_nationkey = "
+                                      f"{D3_DELETED_NATION}"],
+                  ["query", "nextval1", "select nextval(seq)"],
+                  ["query", "nextval2", "select nextval(seq)"]]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tidb_tpu_torch.tidb_server", "--path", bk, "--config", toml,
+             "--status-port", "0", "-P", "0"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        child = subprocess.Popen(
+            [sys.executable, "-c", DURABILITY_CLIENT.format(root=ROOT, db=DDB), port_file,
+             json.dumps(script)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        lines, port, status_port, load_s = [], None, None, None
+        try:
+            while port is None:
+                line = proc.stdout.readline()
+                if not line:
+                    proc.wait(timeout=60)
+                    raise RuntimeError(f"tidb_server exited {proc.returncode}: "
+                                       f"{''.join(lines)[-3000:]}")
+                lines.append(line)
+                if line.startswith("loaded catalog"):
+                    load_s = float(line.rsplit(" in ", 1)[1].rstrip("s\n"))
+                elif line.startswith("status on "):
+                    status_port = int(line.rsplit(":", 1)[1])
+                elif "listening on" in line:
+                    port = int(line.rsplit(":", 1)[1])
+            boot_s = time.perf_counter() - t0
+
+            def get(path):
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{status_port}{path}",
+                                                timeout=60) as r:
+                        return r.status, json.loads(r.read())
+                except urllib.error.HTTPError as e:
+                    return e.code, json.loads(e.read())
+
+            c = MysqlWire(port, db=DDB)
+            code, st = get("/status")
+            assert code == 200 and st["connections"] == 1, st
+            code, sch = get(f"/schema/{DDB}/customer")
+            assert code == 200 and sch["rows"] == len(arr["customer"]["c_custkey"]), sch
+            code, settings = get("/settings")
+            assert settings.get("tidb_slow_log_threshold") == "450", settings.get(
+                "tidb_slow_log_threshold")
+            code, err = get("/metrics")
+            assert code == 500 and "/metrics is not ported yet" in err["error"], err
+            with open(port_file + ".tmp", "w") as f:
+                f.write(str(port))
+            os.replace(port_file + ".tmp", port_file)
+            child_out, child_err = child.communicate(timeout=300)
+            assert child.returncode == 0, child_err[-3000:]
+            res = json.loads(child_out.strip().splitlines()[-1])
+            client_s = res.pop("client_s")
+            got = report_got(res["segment"]["rows"], False)
+            assert got == report_want(arr["customer"], False), got
+            assert res["insert"]["affected"] == D3_NEW_CUSTOMERS, res["insert"]
+            assert res["update"]["affected"] == D3_UPDATED, res["update"]
+            assert res["delete"]["affected"] == n_deleted, res["delete"]
+            seq = [int(res[k]["rows"][0][0]) for k in ("nextval1", "nextval2")]
+            assert seq == [2, 3], res
+            # the manifest's users came back with --path: br_reader reads
+            # and is refused a write
+            r = MysqlWire(port, db=DDB, user="br_reader")
+            _cols, rows, _s = r.query("select count(*) from nation")
+            assert [int(x) for x in rows[0]] == [25], rows
+            try:
+                r.write("insert into nation select * from nation limit 0")
+                raise AssertionError("br_reader wrote over the wire")
+            except WireError as e:
+                assert e.message.startswith("INSERT command denied to user 'br_reader'"), e
+                refused = e.message
+            r.close()
+            c.close()
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rest, _ = proc.communicate(timeout=300)
+            stop_s = time.perf_counter() - t1
+            lines.append(rest)
+        finally:
+            for p in (child, proc):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+        text = "".join(lines)
+        assert proc.returncode == 0, text[-3000:]
+        assert "LockOrderError" not in text and "Traceback" not in text, text[-3000:]
+        snap = [ln for ln in text.splitlines() if ln.startswith("snapshot of ")]
+        assert snap, text[-3000:]
+        snapshot_s = float(snap[-1].rsplit(" in ", 1)[1].rstrip("s"))
+        nbytes = dir_bytes(bk)
+        return {"released_device_bytes": freed, "boot_s": boot_s, "load_s": load_s,
+                "client_s": client_s, "stmt_wire_s": {k: v["s"] for k, v in res.items()},
+                "br_reader_refused": refused,
+                "stop_s": stop_s, "snapshot_s": snapshot_s, "snapshot": snap[-1],
+                "bytes_written": nbytes, "snapshot_mb_per_s": nbytes / snapshot_s / 1e6,
+                "exit_code": proc.returncode}
+
+    d2_holder = [None]
+    step("d3_binary", d3)
+    th2 = d2_holder[0]
+    th2.join(timeout=600)
+    assert not th2.is_alive(), "D2's thread did not end"
+    if d2_err:
+        raise d2_err[0]
+    out["d2_resume"] = dict(d2_out)
+    log("durability d2_resume (beside D3): " + json.dumps(out["d2_resume"]))
+
+    # --- D4: RESTORE in this process ---
+    def d4():
+        nbytes = dir_bytes(bk)
+        t0 = time.perf_counter()
+        sess.execute(f"restore database {DDB} from '{bk}'")
+        restore_s = time.perf_counter() - t0
+        c = dict(arr["customer"])
+        upd = c["c_custkey"] <= D3_UPDATED
+        c["c_acctbal"] = c["c_acctbal"].astype(np.int64) + np.where(upd, 100, 0)
+        for k in c:
+            c[k] = np.concatenate([c[k].astype(np.int64), new[k].astype(np.int64)])
+        rows = {n: one(f"select count(*) from {DDB}.{n}")[0]
+                for n in DURABILITY_TABLES + ["supplier_p", "ev"]}
+        want_rows = {"region": 5, "nation": 25, "supplier": len(arr["supplier"]["s_nationkey"]),
+                     "customer": len(c["c_custkey"]),
+                     "supplier_p": len(arr["supplier"]["s_nationkey"]) - n_deleted, "ev": EV_ROWS}
+        assert rows == want_rows, (rows, want_rows)
+        got = report_got(sess.execute(DURABILITY_REPORT_SQL).rows, True)
+        assert len(got) == 125 and got == report_want(c, True), len(got)
+        seg = report_got(sess.execute(DURABILITY_SEGMENT_SQL).rows, False)
+        assert seg == report_want(c, False), seg
+        assert one(f"select nextval({DDB}.seq)") == (4,)
+        ddl_ev = one(f"show create table {DDB}.ev")[1]
+        assert ddl_ev.endswith(") ttl = ts + interval 90 day"), ddl_ev
+        ddl_sp = one(f"show create table {DDB}.supplier_p")[1]
+        assert "partition by range (s_nationkey)" in ddl_sp.lower() and "p4" in ddl_sp, ddl_sp
+        pruned = _explain_lists(sess, SUPPLIER_P_PRUNED_SQL)
+        assert pruned == out["d1_declare_backup"]["pruned"], pruned
+        # the live catalog's user: RESTORE DATABASE restores no users
+        # (D3 read the manifest's over the wire)
+        reader = Session(cat, db=DDB, user="br_reader")
+        assert reader.execute(f"select count(*) from {DDB}.nation").rows == [(25,)]
+        try:
+            reader.execute(f"insert into {DDB}.nation select * from {DDB}.nation limit 0")
+            raise AssertionError("br_reader wrote")
+        except PermissionError as e:
+            refused = str(e)
+        t0 = time.perf_counter()
+        assert sess.execute(f"admin check table {DDB}.customer, {DDB}.supplier_p").rows == []
+        check_s = time.perf_counter() - t0
+        sums = sess.execute(f"admin checksum table tpch.nation, {DDB}.nation, "
+                            f"tpch.region, {DDB}.region").rows
+        assert sums[0][2:4] == sums[1][2:4] and sums[2][2:4] == sums[3][2:4], sums
+        return {"restore_s": restore_s, "bytes_read": nbytes,
+                "mb_per_s": nbytes / restore_s / 1e6, "rows": rows, "check_s": check_s,
+                "reader_refused": refused}
+
+    step("d4_restore", d4)
+
+    # --- D5: the watchdog ends a statement past the server memory limit ---
+    def d5():
+        sleeper = Session(cat, db=DDB)
+        errors = []
+
+        def run():
+            try:
+                sleeper.execute(f"select sleep({D5_SLEEP_S})")
+            except QueryKilled as e:
+                errors.append(str(e))
+
+        th = threading.Thread(target=run, name="chip-smoke-sleeper")
+        th.start()
+        time.sleep(0.2)
+        rss, total = wd_host_memory()
+        t0 = time.perf_counter()
+        sess.execute(f"set global tidb_server_memory_limit = {rss // 2}")
+        wd = cat._watchdog
+        th.join(timeout=D5_SLEEP_S + 10)
+        ended_s = time.perf_counter() - t0
+        assert not th.is_alive() and errors == ["query interrupted (killed)"], errors
+        assert ended_s <= 2 * wd.interval + 0.5, (ended_s, wd.interval)
+        sess.execute("set global tidb_server_memory_limit = '0'")
+        ops = sess.execute("select op, conn_id, memory_limit from "
+                           "information_schema.memory_usage_ops_history").rows
+        assert ("kill", sleeper.conn_id, rss // 2) in ops, ops
+        mu = one("select memory_total, memory_limit, memory_current, watchdog_samples "
+                 "from information_schema.memory_usage")
+        assert mu[0] == mem_total and mu[1] == 0, (mu, mem_total)
+        wd.stop(timeout=10)
+        assert not wd.is_alive()
+        return {"rss_bytes": rss, "limit_bytes": rss // 2, "ended_s": ended_s,
+                "interval_s": wd.interval, "kills": len(wd.kill_records),
+                "memory_total": mu[0], "samples": mu[3]}
+
+    step("d5_watchdog", d5)
+
+    for name in cat.tables(DDB):
+        scan.release(cat.table(DDB, name))
+    sess.execute(f"drop database {DDB}")
+    sess.execute("drop user br_reader")
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = dict(K.LAUNCHES)
+    log(f"durability: phase {out['phase_s']:.1f}s of {DURABILITY_LIMIT_S:.0f}s, MemTotal "
+        f"{mem_total} B, launches " + json.dumps(out["launches"]))
+    return dict(K.LAUNCHES)
+
+
+def durability_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the durability phase alone: the
+    short loop for durability work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = durability_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the durability phase"
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -5030,6 +5706,9 @@ def main() -> int:
     ap.add_argument("--loads-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the load phase only: no last line")
+    ap.add_argument("--durability-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the durability phase only: no last line")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -5102,6 +5781,10 @@ def main() -> int:
         log(json.dumps({"loads": loads_only(report)}))
         log(card)
         return 0
+    if args.durability_only:
+        log(json.dumps({"durability": durability_only(report)}))
+        log(card)
+        return 0
     if not args.spill_only:
         seen = {}
         launches.update(sf10_phases(args, seen, report))
@@ -5139,7 +5822,9 @@ def main() -> int:
     log("phases: " + json.dumps({
         "seconds": phase_s, "total_s": time.perf_counter() - t_script,
         "partitions_within_limit": phase_s["partitions"] <= PARTITION_LIMIT_S,
-        "loads": phase_s["loads"], "loads_within_limit": phase_s["loads"] <= LOAD_LIMIT_S}))
+        "loads": phase_s["loads"], "loads_within_limit": phase_s["loads"] <= LOAD_LIMIT_S,
+        "durability": phase_s["durability"],
+        "durability_within_limit": phase_s["durability"] <= DURABILITY_LIMIT_S}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

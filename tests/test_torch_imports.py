@@ -38,4 +38,8 @@ def test_the_walk_sees_the_package():
     rel = {os.path.relpath(p, REPO) for p in _sources()}
     assert "tidb_tpu_torch/session/session.py" in rel
     assert "tidb_tpu_torch/executor/kernels.py" in rel
+    for m in ("utils/racecheck.py", "utils/failpoint.py", "utils/config.py",
+              "utils/watchdog.py", "storage/external.py", "storage/persist.py",
+              "server/http_status.py"):
+        assert f"tidb_tpu_torch/{m}" in rel, m
     assert len(rel) > 20

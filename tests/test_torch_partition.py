@@ -488,16 +488,46 @@ def test_pruned_scans_stream_sort_and_partition(monkeypatch):
 
 
 @pytest.mark.parametrize("sql,what", [
-    ("backup database test to 'bk'", "BACKUP and RESTORE"),
-    ("restore database test from 'bk'", "BACKUP and RESTORE"),
+    ("backup log to 'bk'", "BACKUP LOG"),
+    ("restore point from 'bk' until 5", "RESTORE POINT"),
 ])
 def test_what_stays_unported_names_itself(sql, what):
-    """Partition persistence through BACKUP / RESTORE stays refused, by
-    name, before any lock."""
+    """The log backup and point-in-time recovery beside BACKUP / RESTORE
+    stay refused, by name, before any lock."""
     s = Session(Catalog(), device="cpu")
     s.execute("create table t (a int, d date) partition by hash (a) partitions 2")
     with pytest.raises(NotImplementedError, match=what):
         s.execute(sql)
+
+
+@pytest.mark.parametrize("kind", ["backup", "restore"])
+def test_partition_backup_restore_match_jax(kind, tmp_path):
+    """Partitioned tables through BACKUP and RESTORE (once refused): a
+    RANGE and a HASH table, backed up by each package and restored into a
+    fresh catalog of the same package (``backup``) or of the other
+    (``restore``), keep their rows, their partition defs and each block's
+    partition, and prune as before."""
+    stmts = ("create database pb",
+             "create table pb.r (a int, d date) partition by range (a) "
+             "(partition p0 values less than (10), partition p1 values less than maxvalue)",
+             "create table pb.h (a int, d date) partition by hash (a) partitions 3",
+             "insert into pb.r values (1, '2024-01-01'), (15, null), (9, '2023-05-05')",
+             "insert into pb.h values (1, null), (2, '2024-02-02'), (5, '2022-01-01')")
+    p = WritePair(JaxSession(JaxCatalog()), Session(Catalog(), device="cpu"))
+    p.runs(*stmts)
+    p.js.execute(f"backup database pb to '{tmp_path / 'j'}'")
+    p.ts.execute(f"backup database pb to '{tmp_path / 't'}'")
+    src = {"backup": ("j", "t"), "restore": ("t", "j")}[kind]
+    q = WritePair(JaxSession(JaxCatalog()), Session(Catalog(), device="cpu"))
+    q.js.execute(f"restore database pb from '{tmp_path / src[0]}'")
+    q.ts.execute(f"restore database pb from '{tmp_path / src[1]}'")
+    for name in ("r", "h"):
+        q.state(name, db="pb")
+        jt, tt = q.js.catalog.table("pb", name), q.ts.catalog.table("pb", name)
+        assert [b.part_id for b in jt.blocks()] == [b.part_id for b in tt.blocks()]
+        assert tt.partition == p.ts.catalog.table("pb", name).partition
+    q.runs("select a, d from pb.r where a < 10 order by a", "select count(*) from pb.h where a = 2")
+    assert tuple(q.ts.executor.last_compiled.scans[0].partitions) == (2,)
 
 
 @pytest.mark.parametrize("sql", [

@@ -171,6 +171,21 @@ def test_information_schema_tables_once_refused_match_jax(name):
            "use information_schema", f"select count(*) from {name}")
 
 
+@pytest.mark.parametrize("name", ["memory_usage", "memory_usage_ops_history"])
+def test_memory_usage_tables_match_jax(name):
+    """The watchdog's tables, once refused by name, give the JAX
+    Session's columns and, on their stable columns, its rows."""
+    stable = {"memory_usage": "memory_total, memory_limit, memory_usage_alarm_ratio, "
+                              "alarm_records, watchdog_samples",
+              "memory_usage_ops_history": "op, conn_id, memory_limit, sql_text"}[name]
+    got = []
+    for sess in (JaxSession(JaxCatalog()), Session(Catalog(), device="cpu")):
+        sess.catalog.global_sysvars["tidb_server_memory_limit"] = "50%"
+        cols = sess.execute(f"select * from information_schema.{name}").columns
+        got.append((cols, sess.execute(f"select {stable} from information_schema.{name}").rows))
+    assert got[0] == got[1], got
+
+
 @pytest.mark.parametrize("name", sorted(IS_UNPORTED))
 def test_refused_information_schema_tables_name_themselves(name):
     ts = Session(Catalog(), device="cpu")

@@ -7,7 +7,9 @@ index structures: a single column's merge becomes the range index entry
 ``Table._idx_cache[(block uids, column)]`` (valid values in value order,
 then the NULL rows in row order, as ``Table._sorted_index`` builds it),
 and a composite key's merged row views the uniqueness index entry
-``Table._key_cache[("rows", columns)]``. No ``extsort/*`` failpoints.
+``Table._key_cache[("rows", columns)]``. The ``extsort/merge-round``
+failpoint fires at each round of a merge, ``extsort/merge-views`` at each
+merge of row views.
 
 Reference: lightning's external backend — EncodeAndSort writes per-chunk
 sorted KV files, MergeOverlappingFiles k-way merges them, Ingest
@@ -29,6 +31,8 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from tidb_tpu_torch.utils.failpoint import inject
 
 
 def _rows_view(m: np.ndarray) -> np.ndarray:
@@ -92,6 +96,7 @@ def merge_runs(runs: List[tuple]) -> Optional[tuple]:
     if not runs:
         return None
     while len(runs) > 1:
+        inject("extsort/merge-round")
         nxt = []
         for i in range(0, len(runs) - 1, 2):
             nxt.append(merge_two(runs[i], runs[i + 1]))
@@ -208,6 +213,7 @@ def remap_comp_fields(mat: np.ndarray, dict_fields: dict, table_dicts):
 def merge_sorted_views(views) -> Optional[np.ndarray]:
     """Merge sorted structured row views: one stable sort of the
     concatenation — numpy's timsort exploits the pre-sorted runs."""
+    inject("extsort/merge-views")
     views = [v for v in views if v is not None and len(v)]
     if not views:
         return None

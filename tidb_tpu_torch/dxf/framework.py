@@ -1,8 +1,8 @@
 """DXF: distributed execution framework for background jobs.
 
-Counterpart of tidb_tpu/dxf/framework.py, with plain ``threading`` locks
-(the port has no lock-order checker) and without the ``dxf/*`` failpoint
-sites (the port has no failpoints yet).
+Counterpart of tidb_tpu/dxf/framework.py: the manager's lock is a
+``dxf.manager`` class of utils/racecheck.py, and the ``dxf/submit`` and
+``dxf/heartbeat`` failpoints fire where the JAX package's do.
 
 Reference: pkg/disttask/framework — a Scheduler (on the owner node)
 advances task state machines and dispatches subtasks; TaskExecutors on
@@ -36,6 +36,8 @@ from typing import Callable, Dict, List, Optional
 
 from tidb_tpu_torch.dtypes import FLOAT64, STRING
 from tidb_tpu_torch.storage.table import TableSchema
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 
 
 class TaskState(str, enum.Enum):
@@ -90,7 +92,7 @@ class TaskManager:
 
     def __init__(self, catalog):
         self.catalog = catalog
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("dxf.manager")
         self._ensure_tables()
         self._load()
 
@@ -173,6 +175,7 @@ class TaskManager:
 
     # -- task submission ----------------------------------------------
     def submit(self, task_type: str, meta: dict) -> str:
+        inject("dxf/submit")
         if task_type not in _TASK_TYPES:
             raise ValueError(f"unknown task type {task_type!r}")
         tid = uuid.uuid4().hex[:12]
@@ -298,6 +301,7 @@ class TaskManager:
         return None
 
     def heartbeat(self, subtask_id: str) -> None:
+        inject("dxf/heartbeat")
         with self._lock:
             s = self.subtasks.get(subtask_id)
             if s is not None:

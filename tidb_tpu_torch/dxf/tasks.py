@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import threading
 import uuid
 from typing import List
 
 from tidb_tpu_torch.dxf.framework import register_task_type
+from tidb_tpu_torch.utils import racecheck
 
 
 # -- distributed ANALYZE ----------------------------------------------------
@@ -111,7 +111,7 @@ def _import_plan(meta, catalog) -> List[dict]:
 #: each IMPORT task's staging processes, by the task's nonce: the parse is
 #: Python, and the executors are threads of one interpreter
 _STAGERS: dict = {}
-_STAGERS_LOCK = threading.Lock()
+_STAGERS_LOCK = racecheck.make_lock("dxf.stagers")
 
 
 def _stager(nonce: str):

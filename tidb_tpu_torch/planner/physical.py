@@ -65,6 +65,7 @@ from tidb_tpu_torch.expression.kernels import _DeviceLUT, compile_expr
 from tidb_tpu_torch.planner import logical as L
 from tidb_tpu_torch.planner.logical import ROWID_NAME
 from tidb_tpu_torch.storage.scan import scan_table
+from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.memtrack import MemoryTracker, QuotaExceeded, batch_bytes
 
 Dicts = Dict[str, np.ndarray]
@@ -1612,6 +1613,9 @@ class PhysicalExecutor:
         # tidb_mem_quota_query): None = no quota. Admission checks every
         # launch against it; the spill paths size their chunks by it
         self.quota_bytes: Optional[int] = None
+        # the bytes the last admitted launch holds (its scan batches and
+        # operator tiles): the instance watchdog ranks sessions by it
+        self.last_working_set = 0
         # (db, table) -> (table, version) of the session's transaction
         # view; None reads the catalog's current versions
         self.table_hook = None
@@ -1796,19 +1800,23 @@ class PhysicalExecutor:
         (each scan batch at its tile, and twice each sized node's tile:
         keyed group tables take two slots a group) against
         ``quota_bytes`` before launching, and reject the launch with the
-        tracker tree's report when they pass it."""
+        tracker tree's report when they pass it. The total is kept in
+        ``last_working_set`` with or without a quota."""
+        scan_bytes = {nid: batch_bytes(b.capacity, {n: c.data.dtype for n, c in b.cols.items()})
+                      for nid, b in inputs.items()}
+        node_bytes = {nid: 2 * cap * cq.widths.get(nid, 64) for nid, cap in caps.items()}
+        self.last_working_set = sum(scan_bytes.values()) + sum(node_bytes.values())
         if not self.quota_bytes:
             return
+        inject("executor/admission")
         root = MemoryTracker("query", quota_bytes=int(self.quota_bytes))
         scans, nodes = root.child("scans"), root.child("operators")
         try:
-            for nid, b in inputs.items():
-                scans.child(f"scan#{nid}").consume(
-                    batch_bytes(b.capacity, {n: c.data.dtype for n, c in b.cols.items()})
-                )
-            for nid, cap in caps.items():
+            for nid, nbytes in scan_bytes.items():
+                scans.child(f"scan#{nid}").consume(nbytes)
+            for nid, nbytes in node_bytes.items():
                 label = "output" if nid == _OUT_NODE else f"node#{nid}"
-                nodes.child(label).consume(2 * cap * cq.widths.get(nid, 64))
+                nodes.child(label).consume(nbytes)
         except QuotaExceeded as e:
             report = "\n".join(root.report())
             raise ExecError(f"memory quota exceeded ({e}); tracker report:\n{report}") from None
@@ -1836,6 +1844,7 @@ class PhysicalExecutor:
 
     def _run_compiled(self, cq: CompiledQuery, names: List[str]) -> Batch:
         inputs = self._fetch_inputs(cq)
+        inject("executor/before-discover")
         caps = dict(cq.caps or cq.default_caps)
         defaulted = [nid for nid, c in caps.items() if c == 0]
         for nid in defaulted:  # join knobs start at the dominant input tile
@@ -1877,6 +1886,7 @@ class PhysicalExecutor:
             bumped = False
             for nid, n in true_n.items():
                 if n > caps[nid]:
+                    inject("executor/cap-overflow")
                     caps[nid] = _cap_tile(n)
                     if caps[nid] > _MAX_CAP:
                         raise ExecError(f"result too large at node {nid}: {n} rows")

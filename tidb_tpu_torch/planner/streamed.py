@@ -48,8 +48,11 @@ What differs from the JAX package:
   mode (device columns sliced, or host blocks copied per chunk), its
   sizes and its seconds per stage.
 
-There are no DML pins, failpoints, kill checks or prepared-statement
-parameters in the port.
+The JAX package's failpoint sites are here under their names:
+``executor/stream-start``, ``executor/stream-sort``, ``executor/stream-chunk``
+(each chunk fed, ``executor/stream-chunk-device`` too when the chunk slices
+device columns), ``executor/partition-start`` once the grace-hash path is
+committed and ``executor/partition-feed`` at each partition.
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ from tidb_tpu_torch.planner.physical import (
     build_agg_parts,
 )
 from tidb_tpu_torch.storage import scan as _scan
+from tidb_tpu_torch.utils.failpoint import inject
 
 _STAGED_NONCE = [0]
 
@@ -593,6 +597,8 @@ def _chunk_feeds(executor, r: _Read, site, chunk_rows, chunk_tile, inputs_base, 
         full = _scan.scan_table(r.table, site.columns, version=r.version,
                                 device=executor.device, partitions=r.partitions)[0]
         for a in range(0, r.nrows, chunk_tile):
+            inject("executor/stream-chunk")
+            inject("executor/stream-chunk-device")
             z = min(a + chunk_tile, full.capacity)
             pad = chunk_tile - (z - a)
             cols = {
@@ -605,6 +611,7 @@ def _chunk_feeds(executor, r: _Read, site, chunk_rows, chunk_tile, inputs_base, 
         return
     seconds["h2d"] = 0.0
     for hb in _chunk_blocks(r, site.columns, chunk_rows):
+        inject("executor/stream-chunk")
         t0 = time.perf_counter()
         inputs = dict(inputs_base)
         inputs[site.node_id] = block_to_batch(hb, capacity=chunk_tile, device=executor.device)
@@ -671,6 +678,7 @@ def try_streamed(executor, plan, conservative=False, force=False):
     )
     if chunk_rows is None:
         return None
+    inject("executor/stream-start")
     sp = _stream_plan(executor, plan, agg, big_scan, conservative=conservative)
     if sp is None:
         return None
@@ -1251,9 +1259,11 @@ def try_partitioned(executor, plan, conservative=False, force=False):
     }
     executor.stream_log.append(rec)
     gather_s = [0.0]
+    inject("executor/partition-start")  # the path is committed
 
     def feeds():
         for k in range(parts):
+            inject("executor/partition-feed")
             t1 = time.perf_counter()
             inputs = dict(inputs_base)
             for key, ss in keys.items():
@@ -1401,6 +1411,7 @@ def try_streamed_sort(executor, plan, conservative=False):
     chunk_rows, facts = _stream_sizing(executor, scans, resolved, big_i, threshold, P._MAX_CAP)
     if chunk_rows is None:
         return None
+    inject("executor/stream-sort")
     sp = _sort_stream_plan(executor, plan, sort, scans[big_i], conservative=conservative)
     if sp is None:
         return None

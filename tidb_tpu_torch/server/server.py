@@ -8,7 +8,10 @@ device one at a time across the process (``session.statement_lock``);
 handshakes, parsing and wire I/O stay concurrent. ``serve_forever``
 also starts the two background workers the JAX server runs, the
 auto-analyze ``StatsHandle`` (every 30 s) and the ``TTLWorker`` (every
-60 s), and ``shutdown`` stops and joins them.
+60 s), and ``shutdown`` stops and joins them. With ``status_port`` (0: any
+free port) it serves the HTTP status API beside the MySQL port
+(server/http_status.py), started with the accept loop and shut down with
+it; a status port that cannot be bound raises at construction.
 
 The server runs on CUDA unless the caller passes ``device="cpu"``; with
 no card present it raises before it listens.
@@ -27,6 +30,8 @@ from tidb_tpu_torch.server import protocol as P
 from tidb_tpu_torch.session.session import Result, Session
 from tidb_tpu_torch.stats.handle import StatsHandle
 from tidb_tpu_torch.storage import Catalog
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.ttl import TTLWorker
 
 COM_QUIT = 0x01
@@ -60,12 +65,13 @@ class Server:
         host: str = "127.0.0.1",
         port: int = 4000,
         device=None,
+        status_port: Optional[int] = None,
     ):
         self.catalog = catalog if catalog is not None else Catalog()
         self.device = resolve_device(device)
         self.host = host
         self._next_conn_id = 0
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("server.conns")
         #: connection id (the handshake's) -> the connection's Session,
         #: while the client is connected and authenticated
         self.sessions: Dict[int, Session] = {}
@@ -85,10 +91,31 @@ class Server:
         # loop and the TTL job manager)
         self.stats_handle = StatsHandle(self.catalog, interval_s=30.0, device=self.device)
         self.ttl_worker = TTLWorker(self.catalog, interval_s=60.0, device=self.device)
+        # the side HTTP port (reference pkg/server/http_status.go); None
+        # serves none
+        self.status_server = None
+        if status_port is not None:
+            from tidb_tpu_torch.server.http_status import StatusServer
+
+            try:
+                self.status_server = StatusServer(
+                    self.catalog, host=host, port=status_port,
+                    connections=lambda: self.connections)
+            except BaseException:
+                self._tcp.server_close()
+                raise
+
+    @property
+    def connections(self) -> int:
+        """Connected, authenticated clients (the /status count)."""
+        with self._lock:
+            return len(self.sessions)
 
     def serve_forever(self) -> None:
         self.stats_handle.start()
         self.ttl_worker.start()
+        if self.status_server is not None:
+            self.status_server.start_background()
         self._tcp.serve_forever()
 
     def start_background(self) -> threading.Thread:
@@ -102,6 +129,8 @@ class Server:
         # the accept loop first: it returns once serve_forever, which
         # starts the workers, has run, so no worker starts after its stop
         self._tcp.shutdown()
+        if self.status_server is not None:
+            self.status_server.shutdown()
         self.ttl_worker.stop()
         self.stats_handle.stop()
         self._tcp.server_close()
@@ -162,6 +191,7 @@ class Server:
                     sess.execute(f"use `{payload.decode()}`")
                     io.write_packet(P.ok_packet())
                 elif cmd == COM_QUERY:
+                    inject("server/dispatch-query")
                     r = sess.execute(payload.decode("utf-8", "replace"))
                     self._write_result(io, r, sess)
                 elif cmd == COM_FIELD_LIST:

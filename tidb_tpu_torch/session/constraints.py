@@ -30,6 +30,7 @@ import numpy as np
 from tidb_tpu_torch.chunk import HostBlock, HostColumn, column_from_values
 from tidb_tpu_torch.dtypes import Kind
 from tidb_tpu_torch.utils.checkeval import _truth, eval_check
+from tidb_tpu_torch.utils.failpoint import inject
 
 _NUMERIC = (Kind.INT, Kind.DECIMAL, Kind.FLOAT, Kind.BOOL)
 
@@ -475,6 +476,7 @@ class ConstraintMixin:
         """ON DELETE CASCADE: delete the child rows that referenced a
         removed parent key, then apply the child's own ON DELETE
         actions."""
+        inject("fk/cascade-delete")
         t = self._resolve_table_for_write(cdb, ctn)
         self._fk_undo_snapshot(undo, t)
         keep = [~self._child_block_mask(b, col, spec) for b in t.blocks()]
@@ -648,6 +650,7 @@ class ConstraintMixin:
     def _cascade_update_child(self, cdb, ctn, col, mapping, depth, undo) -> None:
         """ON UPDATE CASCADE: rewrite the child's keys old -> new (encoded
         arrays), then recheck its own children."""
+        inject("fk/cascade-update")
         olds, news, ptype = mapping
         if not len(olds):
             return

@@ -9,8 +9,10 @@ context (its catalog, database and statement state).
 CREATE INDEX climbs the online schema-state ladder WRITE_ONLY ->
 WRITE_REORG -> PUBLIC (writers check an index from its first state,
 readers use it once public) and rolls the registration back when a
-UNIQUE index finds duplicates. The JAX ladder's failpoints are left out:
-failpoints are not ported. Column DDL is refused where a CHECK, a
+UNIQUE index finds duplicates. The JAX ladder's ``ddl/index-*`` and
+``ddl/modify-column-*`` failpoints are left out on purpose: the port's
+DDL sites are ``ddl/create-index``, ``ddl/alter-table``,
+``ddl/rename-table`` and ``ddl/generated-recompute``. Column DDL is refused where a CHECK, a
 generated column or a FOREIGN KEY depends on the column
 (``_guard_column_refs``). Generated columns
 (STORED and VIRTUAL alike) are computed row by row on the host when
@@ -40,6 +42,7 @@ from tidb_tpu_torch.storage import convert as CV
 from tidb_tpu_torch.utils.checkeval import (
     CheckEvalError, check_columns, eval_check, validate_expr_ops,
 )
+from tidb_tpu_torch.utils.failpoint import inject
 
 #: ALTER TABLE actions that manage partitions: none combines with another
 #: spec, and those that remove or move rows take the table locks and are
@@ -169,6 +172,7 @@ class DDLMixin:
         """Every generated column over the whole table again, from its
         decoded rows (the JAX package's row-at-a-time rewrite): after
         ALTER TABLE ... ADD ... AS and after a MODIFY of an input."""
+        inject("ddl/generated-recompute")
         gen = self._gen_exprs_for(t)
         if not gen or not t.blocks():
             return
@@ -263,6 +267,7 @@ class DDLMixin:
         t.bump_version()
 
     def _run_create_index(self, s: ast.CreateIndex) -> None:
+        inject("ddl/create-index")
         t = self.catalog.table(s.db or self.db, s.table)
         if s.name.lower() in t.indexes:
             if not s.if_not_exists:
@@ -521,6 +526,7 @@ class DDLMixin:
     def _run_rename_table(self, s: ast.RenameTable) -> None:
         """Atomic over its pairs: a later pair's failure moves the earlier
         ones back. The renamed tables' device columns are released."""
+        inject("ddl/rename-table")
         done, moved = [], []
         try:
             for (sdb, sname), (ddb, dname) in s.pairs:
@@ -535,6 +541,7 @@ class DDLMixin:
 
     # -- ALTER TABLE -----------------------------------------------------------
     def _run_alter_table(self, s: ast.AlterTable) -> None:
+        inject("ddl/alter-table")
         t = self.catalog.table(s.db or self.db, s.name)
         if s.action in PARTITION_ACTIONS:
             self._run_partition_ddl(t, s)

@@ -113,7 +113,6 @@ import json
 import math
 import operator
 import os
-import threading
 import time
 import weakref
 from typing import Dict, List, Optional, Tuple
@@ -163,6 +162,8 @@ from tidb_tpu_torch.storage.sequence import Sequence
 from tidb_tpu_torch.storage.table import set_gc_life
 from tidb_tpu_torch.tools.dump import create_table_sql
 from tidb_tpu_torch.utils import collate as _coll
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.collate import CHARSET_DEFAULTS
 from tidb_tpu_torch.utils.checkeval import check_columns
 from tidb_tpu_torch.utils.metrics import record_digest, seen_digests, sql_digest
@@ -175,8 +176,14 @@ _DML = (ast.Insert, ast.Update, ast.Delete, ast.LoadData)
 
 #: statements this slice leaves out, by the name the error gives them
 _UNPORTED = {
-    ast.BackupRestore: "BACKUP and RESTORE (persistence and BR)",
+    ast.BackupLog: "BACKUP LOG (log backup, ROADMAP.md queue 1, item 7)",
+    ast.RestorePoint: "RESTORE POINT (point-in-time recovery, ROADMAP.md queue 1, item 7)",
+    ast.ChangefeedStmt: "CHANGEFEED (change data capture, ROADMAP.md queue 1, item 7)",
 }
+
+#: the knobs whose first SET starts the instance watchdog
+_WATCHDOG_KNOBS = ("tidb_server_memory_limit", "tidb_memory_usage_alarm_ratio",
+                   "tidb_expensive_query_time_threshold")
 
 #: the advisory-lock builtins, folded before planning
 _USER_LOCK_FUNCS = ("get_lock", "release_lock", "is_free_lock", "is_used_lock",
@@ -186,16 +193,19 @@ _USER_LOCK_FUNCS = ("get_lock", "release_lock", "is_free_lock", "is_used_lock",
 # database is shared by every session of a catalog
 _cte_scratch_seq = itertools.count(1)
 
-_STATEMENT_LOCKS: Dict[str, threading.RLock] = {}
-_STATEMENT_LOCKS_GUARD = threading.Lock()
+_STATEMENT_LOCKS: Dict[str, object] = {}
+_STATEMENT_LOCKS_GUARD = racecheck.make_lock("session.statement_guard")
 
 
-def statement_lock(device) -> threading.RLock:
+def statement_lock(device):
     """The process-wide lock under which one statement at a time runs on
     `device`. Re-entrant: EXECUTE of a statement prepared by text runs
     ``execute`` again inside it."""
     with _STATEMENT_LOCKS_GUARD:
-        return _STATEMENT_LOCKS.setdefault(str(device), threading.RLock())
+        lk = _STATEMENT_LOCKS.get(str(device))
+        if lk is None:
+            lk = _STATEMENT_LOCKS[str(device)] = racecheck.make_rlock("session.statement")
+        return lk
 
 
 class _SessionCatalog:
@@ -545,14 +555,27 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         self._check_ported(s)
         if isinstance(s, ast.Kill) or (isinstance(s, ast.Show) and s.what == "processlist"):
             return self._execute_stmt(s)
-        release = self._take_locks(s)
+        top = self._depth == 0
+        if top:
+            # armed and listed before the table locks: a KILL, the
+            # watchdog or the deadline ends a statement waiting on a lock
+            # too, and SHOW PROCESSLIST shows it waiting
+            limit_ms = int(self.vars.get("max_execution_time") or 0)
+            self.killer.clear(
+                deadline=time.monotonic() + limit_ms / 1000.0 if limit_ms else 0.0)
+            self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
         try:
-            with statement_lock(self.device):
-                t0 = time.perf_counter()
-                res = self._execute_stmt(s)
-                res.elapsed_s = time.perf_counter() - t0
+            release = self._take_locks(s)
+            try:
+                with statement_lock(self.device):
+                    t0 = time.perf_counter()
+                    res = self._execute_stmt(s)
+                    res.elapsed_s = time.perf_counter() - t0
+            finally:
+                release()
         finally:
-            release()
+            if top:
+                self._current_stmt = None
         record_digest(getattr(s, "_source_sql", None) or type(s).__name__)
         return res
 
@@ -580,22 +603,22 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
 
     def _begin_statement(self, s) -> None:
         """A top-level statement's start (the JAX session's prologue):
-        its counters, the diagnostics area, its processlist entry, the
-        killer cleared with the statement's deadline, and the stale-read
-        state. ``tidb_read_staleness`` applies to a read only; an AS OF
-        inside a DML is refused rather than read fresh."""
+        its counters, the diagnostics area, the current killer and the
+        stale-read state; the processlist entry where ``_run_top`` did
+        not set it before the table locks (KILL, SHOW PROCESSLIST).
+        ``tidb_read_staleness`` applies to a read only; an AS OF inside a
+        DML is refused rather than read fresh."""
         self.cte_log = []
         self._stmt_count += 1
         if isinstance(s, _READS):
             self._select_count += 1
         if not (isinstance(s, ast.Show) and s.what == "warnings"):
             self._warnings = []
-        limit_ms = int(self.vars.get("max_execution_time") or 0)
-        self.killer.clear(deadline=time.monotonic() + limit_ms / 1000.0 if limit_ms else 0.0)
         # SLEEP polls this session's killer through the thread-local, and
         # lets the statement lock go while it sleeps
         _sk.set_current(self.killer, statement_lock(self.device))
-        self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
+        if self._current_stmt is None:  # KILL and SHOW PROCESSLIST
+            self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
         self._stale_ok = isinstance(s, _READS)
         inner = s.stmt if isinstance(s, ast.Explain) else s
         self._stmt_as_of = {}
@@ -606,6 +629,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             raise ValueError("AS OF TIMESTAMP is only allowed in read-only statements")
 
     def _dispatch(self, s) -> Result:
+        inject("session/stmt-start")
         self._enforce_privileges(s)
         self._apply_sysvars()
         if isinstance(s, _READS):
@@ -680,6 +704,12 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
                 self.user_vars[s.name.lstrip("@")] = s.value
             else:
                 self.vars.set(s.name, s.value, s.scope)
+                if s.name.lower() in _WATCHDOG_KNOBS:
+                    # the instance watchdog starts at the first touch of
+                    # one of its knobs (memoryusagealarm/servermemorylimit)
+                    from tidb_tpu_torch.utils.watchdog import ensure_watchdog
+
+                    ensure_watchdog(self.catalog)
                 if s.name.lower() == "tidb_gc_life_time":
                     # the storage GC horizon is engine-wide; the variable
                     # is GLOBAL-only, so the global store holds the value
@@ -698,6 +728,8 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             return Result([], [])
         if isinstance(s, ast.CreateBinding):
             return self._run_binding(s)
+        if isinstance(s, ast.BackupRestore):
+            return self._run_backup_restore(s)
         if isinstance(s, ast.Kill):
             target = self.catalog._session_registry.get(s.conn_id)
             if target is None:
@@ -923,6 +955,50 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             self._require_super()
         elif isinstance(s, ast.ImportInto):
             self._check_priv("insert", (s.db or self.db).lower(), s.table.lower())
+        elif isinstance(s, ast.BackupRestore):
+            self._require_super()
+
+    # -- BACKUP / RESTORE ----------------------------------------------
+    def _run_backup_restore(self, s) -> Result:
+        """BACKUP DATABASE db|* TO 'uri' and RESTORE DATABASE db|* FROM
+        'uri' (storage/persist.py over storage/external.py). Both act on
+        the shared base catalog: the session's temporary tables neither
+        ride into a backup nor shadow a restore. A BACKUP takes its
+        tables' versions under the statement lock and writes them with
+        it let go, and resumes from the checkpoint ledger an interrupted
+        one left. A RESTORE publishes a
+        new version of every table it writes (or a new table, where the
+        backup's schema differs): the old versions' device columns go
+        from the scan cache, pruned sets included, with the statistics
+        of every table replaced in place."""
+        from tidb_tpu_torch.storage.persist import (
+            capture_catalog, load_catalog, write_snapshot,
+        )
+
+        inject("br/statement")
+        dbs = [s.db] if s.db else None
+        base = self.catalog._base
+        if not s.restore:
+            snap = capture_catalog(base, dbs)
+            # the captured blocks are immutable: the concatenation, the
+            # deflate and the writes run with the statement lock let go,
+            # so that other sessions' statements run meanwhile
+            with _sk.statement_lock_released():
+                write_snapshot(snap, s.path, resume=True)
+            return Result([], [])
+        want = {d.lower() for d in dbs} if dbs else None
+        before = {(db, n): base.table(db, n) for db in base.databases()
+                  if want is None or db in want for n in base.tables(db)}
+        try:
+            load_catalog(s.path, base, dbs=dbs)
+        finally:
+            for (db, n), t in before.items():
+                if base.has_table(db, n) and base.table(db, n) is t:
+                    _scan.invalidate(t)
+                    t.stats = {}
+                else:
+                    _scan.release(t)
+        return Result([], [])
 
     # -- session functions ---------------------------------------------
     def _resolve_session_funcs(self, node):
@@ -1258,6 +1334,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         if ent is None:
             raise ValueError(f"unknown prepared statement {name}")
         values = list(values)
+        inject("session/execute-prepared")
         if len(values) != ent["nparams"]:
             raise ValueError(
                 f"statement expects {ent['nparams']} parameters, got {len(values)}"
@@ -1359,8 +1436,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
     # Iterative materialization (reference: CTEExec's seed and recursive
     # iteration, pkg/executor/cte.go:70): each recursive CTE is evaluated
     # to a fixpoint into a scratch table, and the body plans against a
-    # plain SELECT over it. The JAX loop's `cte/iterate` failpoint is left
-    # out: failpoints are not ported.
+    # plain SELECT over it; the `cte/iterate` failpoint fires at each step.
     @property
     def _CTE_MAX_RECURSION(self) -> int:
         # the cte_max_recursion_depth sysvar (MySQL's default 1000)
@@ -1444,6 +1520,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             if rec["steps"] > self._CTE_MAX_RECURSION:
                 raise ValueError(
                     f"recursive CTE {name!r} exceeded {self._CTE_MAX_RECURSION} iterations")
+            inject("cte/iterate")
             wt.clear_rows()
             wt.append_rows(working)
             # the last step's columns and plans over the working table
@@ -1846,7 +1923,8 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
                 for k in keys:
                     if k in locked:
                         continue
-                    lm.acquire(txn_id, k, timeout=self._lock_timeout())
+                    lm.acquire(txn_id, k, timeout=self._lock_timeout(),
+                               kill_check=self.killer.check)
                     locked.add(k)
                     self._advance_snapshot(k)
             except DeadlockError:
@@ -1856,7 +1934,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         sid = next_txn_id()
         try:
             for k in sorted(keys):
-                lm.acquire(sid, k, timeout=self._lock_timeout())
+                lm.acquire(sid, k, timeout=self._lock_timeout(), kill_check=self.killer.check)
         except BaseException:
             lm.release_all(sid)
             raise
@@ -1874,7 +1952,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         lm = self.catalog.lock_manager
         try:
             for k in sorted(txn["shadows"]):
-                lm.acquire(cid, k, timeout=self._lock_timeout())
+                lm.acquire(cid, k, timeout=self._lock_timeout(), kill_check=self.killer.check)
         except BaseException:
             self._abort_txn()
             lm.release_all(cid)
@@ -1952,6 +2030,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
 
     def _run_txn_control(self, s) -> Result:
         if s.op == "begin":
+            inject("session/begin-txn")
             if self._txn is not None:
                 self._commit_txn()  # MySQL: BEGIN implicitly commits
             self._txn = {
@@ -2026,13 +2105,16 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             return
         txn, self._txn = self._txn, None
         try:
+            inject("session/before-commit")
             with self.catalog._commit_mu:
                 for (db, name) in txn["shadows"]:
                     base = self.catalog.table(db, name)
+                    inject("session/commit-conflict-check")
                     if base.version != txn["base_versions"][(db, name)]:
                         raise RuntimeError(
                             f"write conflict on {db}.{name}: table changed since transaction start"
                         )
+                inject("session/commit-apply")
                 for (db, name), shadow in txn["shadows"].items():
                     # direct allocator assign, not max: the check proved
                     # the base unchanged, so TRUNCATE's reset survives
@@ -2259,6 +2341,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         """INSERT [IGNORE] ... [ON DUPLICATE KEY UPDATE] and REPLACE, of
         VALUES or a SELECT. Affected rows count as MySQL's: each inserted
         row 1 and each row an ON DUPLICATE KEY UPDATE changed 2."""
+        inject("dml/insert")
         t = self._resolve_table_for_write(s.db or self.db, s.table)
         names = t.schema.names
         cols = [c.lower() for c in s.columns] if s.columns else names
@@ -2362,6 +2445,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         after the append over the loaded rows, and the append is rolled
         back on a violation; generated columns are computed again over
         the table."""
+        inject("dml/load")
         db = s.db or self.db
         t = self._resolve_table_for_write(db, s.table)
         constrained = bool(t.checks or t.fks)
@@ -2757,6 +2841,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
 
     # -- DELETE --------------------------------------------------------
     def _run_delete(self, s: ast.Delete) -> Result:
+        inject("dml/delete")
         if s.targets is not None:
             return self._run_delete_multi(s)
         db = s.db or self.db
@@ -2774,6 +2859,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
 
     # -- UPDATE --------------------------------------------------------
     def _run_update(self, s: ast.Update) -> Result:
+        inject("dml/update")
         if s.from_refs is not None:
             return self._run_update_multi(s)
         t = self._resolve_table_for_write(s.db or self.db, s.table)

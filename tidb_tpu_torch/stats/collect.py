@@ -24,6 +24,7 @@ import torch
 from tidb_tpu_torch.chunk import fetch, resolve_device, to_device
 from tidb_tpu_torch.dtypes import Kind
 from tidb_tpu_torch.storage.scan import scan_table
+from tidb_tpu_torch.utils.failpoint import inject
 
 N_BUCKETS = 64
 N_TOPN = 16
@@ -94,6 +95,7 @@ def analyze_table(table, device=None, columns=None) -> Dict[str, ColumnStats]:
     unless the caller names another). `columns` restricts the pass, and
     its stats then merge into the table's (the DXF analyze task's
     subtasks, one column each)."""
+    inject("stats/analyze")
     device = resolve_device(device)
     if columns is not None and not columns:
         return dict(table.stats or {})

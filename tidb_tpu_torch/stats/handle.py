@@ -21,6 +21,7 @@ from typing import Optional
 
 from tidb_tpu_torch.chunk import resolve_device
 from tidb_tpu_torch.stats.collect import analyze_table
+from tidb_tpu_torch.utils import racecheck
 
 _log = logging.getLogger(__name__)
 
@@ -60,7 +61,7 @@ class StatsHandle:
         self.ratio = ratio
         self.device = resolve_device(device)
         self._stop = threading.Event()
-        self._guard = threading.Lock()
+        self._guard = racecheck.make_lock("stats.handle")
         self._thread: Optional[threading.Thread] = None
 
     def _sysvar(self, name, default):

@@ -24,26 +24,29 @@ information_schema: ``tables``, ``columns``, ``schemata``,
 ``part_id``) are built from the catalog as the JAX package builds them,
 memoized per schema version and data fingerprint (a fresh table per
 statement would carry a fresh uid, and the executor would recompile its
-plan and re-copy its columns every time). The diagnostic tables refuse
-by name.
+plan and re-copy its columns every time). ``memory_usage`` and
+``memory_usage_ops_history``, the instance watchdog's surface
+(utils/watchdog.py), are built anew at every read. The other diagnostic
+tables refuse by name.
 """
 
 from __future__ import annotations
 
 import itertools
-import threading
 import weakref
 from typing import Dict, List
 
-from tidb_tpu_torch.dtypes import INT64, STRING, Kind, days_to_date
+from tidb_tpu_torch.dtypes import FLOAT64, INT64, STRING, Kind, days_to_date
 from tidb_tpu_torch.storage.locks import LockManager
 from tidb_tpu_torch.storage.table import Table, TableSchema
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.privilege import UserStore
 
 
 class Catalog:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("catalog")
         self._dbs: Dict[str, Dict[str, Table]] = {"test": {}}
         # views per database: name -> (SELECT text, column names or None)
         self._views: Dict[str, Dict[str, tuple]] = {"test": {}}
@@ -69,7 +72,7 @@ class Catalog:
         # pessimistic transactions and autocommit writers, and the mutex
         # that makes an optimistic commit's check and install one step
         self.lock_manager = LockManager()
-        self._commit_mu = threading.Lock()
+        self._commit_mu = racecheck.make_lock("catalog.commit")
         # bumped by every DDL: the information_schema memo's key
         self.schema_version = 0
         self._is_table_cache: Dict[str, tuple] = {}
@@ -78,7 +81,7 @@ class Catalog:
         # advisory locks (GET_LOCK): name -> [holder conn_id, depth],
         # waited for on the condition
         self._user_locks: Dict[str, list] = {}
-        self._user_locks_cv = threading.Condition()
+        self._user_locks_cv = racecheck.make_condition("session.user_locks")
 
     def create_database(self, name: str, if_not_exists: bool = False) -> None:
         name = name.lower()
@@ -112,6 +115,7 @@ class Catalog:
     def create_table(
         self, db: str, name: str, schema: TableSchema, if_not_exists: bool = False
     ) -> Table:
+        inject("catalog/create-table")
         db, name = db.lower(), name.lower()
         with self._lock:
             if db not in self._dbs:
@@ -130,6 +134,7 @@ class Catalog:
             return t
 
     def drop_table(self, db: str, name: str, if_exists: bool = False) -> None:
+        inject("catalog/drop-table")
         db, name = db.lower(), name.lower()
         with self._lock:
             if name not in self._dbs.get(db, {}):
@@ -285,6 +290,9 @@ class Catalog:
             del self._seqs[db][name]
             self.schema_version += 1
 
+    def sequences(self, db: str) -> List[str]:
+        return sorted(self._seqs.get(db.lower(), {}))
+
     def sequence(self, db: str, name: str):
         s = self._seqs.get(db.lower(), {}).get(name.lower())
         if s is None:
@@ -320,6 +328,8 @@ class Catalog:
         """The virtual table `name`, memoized per catalog state."""
         if name not in _IS_BUILT:
             raise ValueError(f"unknown table information_schema.{name}")
+        if name in _IS_LIVE:
+            return self._build_infoschema_table(name)
         state = (self.schema_version, self._data_fingerprint())
         hit = self._is_table_cache.get(name)
         if hit is not None and hit[0] == state:
@@ -456,6 +466,33 @@ class Catalog:
                 rows += [(db, tn, pname, i + 1, kind.upper(), f"`{pcol}`",
                           _partition_description(t, i), per.get(i, 0))
                          for i, pname in enumerate(t.partition_names())]
+        elif name == "memory_usage":
+            # the instance's memory (reference: information_schema.
+            # memory_usage over the watchdog's state)
+            from tidb_tpu_torch.utils.watchdog import gvar, host_memory, parse_mem_limit
+
+            rss, total = host_memory()
+            wd = getattr(self, "_watchdog", None)
+            limit = parse_mem_limit(gvar(self, "tidb_server_memory_limit", "0"), total)
+            schema = TableSchema([("memory_total", INT64), ("memory_limit", INT64),
+                                  ("memory_current", INT64),
+                                  ("memory_usage_alarm_ratio", FLOAT64),
+                                  ("alarm_records", INT64), ("watchdog_samples", INT64)])
+            rows = [(total, limit, rss,
+                     float(gvar(self, "tidb_memory_usage_alarm_ratio", 0.7)),
+                     len(wd.alarm_records) if wd else 0, wd.samples if wd else 0)]
+        elif name == "memory_usage_ops_history":
+            # the watchdog's actions: its alarms, then its kills
+            wd = getattr(self, "_watchdog", None)
+            schema = TableSchema([("time", FLOAT64), ("op", STRING), ("conn_id", INT64),
+                                  ("memory_current", INT64), ("memory_limit", INT64),
+                                  ("sql_text", STRING)])
+            rows = []
+            if wd is not None:
+                rows += [(r["time"], "alarm", 0, r["rss"], int(r["ratio"] * r["total"]), "")
+                         for r in wd.alarm_records]
+                rows += [(r["time"], "kill", r["conn_id"], r["rss"], r["limit"], r["sql"])
+                         for r in wd.kill_records]
         else:  # schemata
             schema = TableSchema([("schema_name", STRING)])
             with self._lock:
@@ -490,14 +527,16 @@ def _partition_description(t, i: int):
 
 _IS_BUILT = ("tables", "columns", "schemata", "statistics", "table_constraints",
              "key_column_usage", "referential_constraints", "views", "sequences",
-             "partitions")
+             "partitions", "memory_usage", "memory_usage_ops_history")
+
+#: information_schema tables of the moment: never memoized
+_IS_LIVE = ("memory_usage", "memory_usage_ops_history")
 
 #: information_schema tables the port refuses, with the feature they wait for
 IS_UNPORTED = {
     **{n: "a diagnostic table: observability is not ported" for n in (
         "slow_query", "statements_summary", "statements_summary_history", "metrics",
-        "top_sql", "tpu_engine", "memory_usage", "memory_usage_ops_history",
-        "cluster_links", "inspection_result", "resource_groups")},
+        "top_sql", "tpu_engine", "cluster_links", "inspection_result", "resource_groups")},
 }
 
 

@@ -17,9 +17,11 @@ CheckDeadlock).
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, Optional, Set, Tuple
+
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 
 LockKey = Tuple[str, str]  # (db, table)
 
@@ -48,7 +50,7 @@ class LockWaitTimeout(RuntimeError):
 
 class LockManager:
     def __init__(self) -> None:
-        self._mu = threading.Condition()
+        self._mu = racecheck.make_condition("storage.txn_wait")
         # key -> owning txn id
         self._owners: Dict[LockKey, int] = {}
         # txn id -> keys it holds
@@ -67,10 +69,14 @@ class LockManager:
             cur = self._waits.get(cur)
         return False
 
-    def acquire(self, txn_id: int, key: LockKey, timeout: float = 50.0) -> None:
+    def acquire(self, txn_id: int, key: LockKey, timeout: float = 50.0,
+                kill_check=None) -> None:
         """Block until `txn_id` holds `key`. Raises DeadlockError when
         waiting would close a cycle in the wait-for graph, or
-        LockWaitTimeout after `timeout` seconds."""
+        LockWaitTimeout after `timeout` seconds. `kill_check` (the
+        session killer's ``check``) is polled at least every 0.25 s of a
+        wait, so a KILL or the watchdog ends a statement waiting here."""
+        inject("locks/acquire")
         deadline = time.monotonic() + timeout
         with self._mu:
             while True:
@@ -82,13 +88,20 @@ class LockManager:
                     return
                 if self._would_deadlock(txn_id, owner):
                     self._waits.pop(txn_id, None)
+                    inject("locks/deadlock-detected")
                     raise DeadlockError()
                 self._waits[txn_id] = owner
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     self._waits.pop(txn_id, None)
                     raise LockWaitTimeout(key, timeout)
-                self._mu.wait(timeout=remaining)
+                self._mu.wait(timeout=min(remaining, 0.25))
+                if kill_check is not None:
+                    try:
+                        kill_check()
+                    except BaseException:
+                        self._waits.pop(txn_id, None)
+                        raise
 
     def release_all(self, txn_id: int) -> None:
         with self._mu:
@@ -99,7 +112,7 @@ class LockManager:
             self._mu.notify_all()
 
 
-_txn_id_lock = threading.Lock()
+_txn_id_lock = racecheck.make_lock("storage.txn_id")
 _txn_id_next = [1]
 
 

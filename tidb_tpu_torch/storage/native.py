@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import re
-import threading
 from typing import Optional
 
 import numpy as np
@@ -27,6 +26,7 @@ import numpy as np
 from tidb_tpu_torch import _build
 from tidb_tpu_torch.chunk import HostBlock, HostColumn, encode_strings
 from tidb_tpu_torch.dtypes import Kind
+from tidb_tpu_torch.utils import racecheck
 
 _TYPECODE = {
     Kind.INT: 0,
@@ -37,7 +37,7 @@ _TYPECODE = {
     Kind.BOOL: 5,
 }
 
-_lock = threading.Lock()
+_lock = racecheck.make_lock("storage.native")
 _lib: Optional[ctypes.CDLL] = None
 _FIELDS_ERROR = re.compile(r"row \d+ has (\d+) fields, want (\d+)")
 

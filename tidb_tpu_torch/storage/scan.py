@@ -27,6 +27,7 @@ import torch
 
 from tidb_tpu_torch.chunk import TRANSFERS, Batch, DevCol, pad_capacity, resolve_device
 from tidb_tpu_torch.storage.table import Table
+from tidb_tpu_torch.utils.failpoint import inject
 
 # (table uid, version, column, capacity, device, partitions) -> DevCol,
 # plus one row-validity mask per (table uid, version, capacity, device,
@@ -169,6 +170,7 @@ def scan_table(
     batch lies on CUDA unless the caller names another device.
     `partitions`: the partition ids whose blocks the scan reads (with the
     untagged blocks); None reads every block."""
+    inject("storage/scan")
     device = resolve_device(device)
     v = table.version if version is None else version
     pkey = _pkey(partitions)

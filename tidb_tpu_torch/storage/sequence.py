@@ -7,8 +7,10 @@ it). The catalog holds sequences in the namespace of its tables and views.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
+
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 
 
 class SequenceExhausted(ValueError):
@@ -45,7 +47,7 @@ class Sequence:
         self.cycle = bool(cycle)
         self.cache = int(cache)
         self._next: Optional[int] = self.start  # None: exhausted
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("sequence")
 
     def _after(self, v: int) -> Optional[int]:
         """The value after `v`: past a bound, the other bound when the
@@ -59,6 +61,7 @@ class Sequence:
         return n
 
     def nextval(self) -> int:
+        inject("sequence/nextval")
         with self._lock:
             if self._next is None:
                 raise SequenceExhausted(f"sequence {self.name!r} has run out")
@@ -77,3 +80,12 @@ class Sequence:
             return {"start": self.start, "increment": self.increment,
                     "minvalue": self.minvalue, "maxvalue": self.maxvalue,
                     "cycle": self.cycle, "cache": self.cache, "next": self._next}
+
+    @classmethod
+    def from_meta(cls, name: str, m: dict) -> "Sequence":
+        """The sequence a BACKUP manifest's ``meta()`` describes."""
+        s = cls(name, start=m["start"], increment=m["increment"],
+                minvalue=m["minvalue"], maxvalue=m["maxvalue"], cycle=m["cycle"],
+                cache=m.get("cache", 1000))
+        s._next = m.get("next", s.start)
+        return s

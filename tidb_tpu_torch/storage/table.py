@@ -44,7 +44,6 @@ import dataclasses
 import itertools
 import json
 import math
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -53,6 +52,8 @@ import numpy as np
 
 from tidb_tpu_torch.chunk import HostBlock, HostColumn, column_from_values
 from tidb_tpu_torch.dtypes import Kind, SQLType
+from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.failpoint import inject
 
 _table_uid_counter = itertools.count(1)
 
@@ -150,7 +151,7 @@ def _take_block(block: HostBlock, idx: np.ndarray) -> HostBlock:
 
     names = list(block.columns)
     if block.nrows >= _PARALLEL_ROWS and len(names) > 1:
-        with ThreadPoolExecutor(min(len(names), 8)) as ex:
+        with ThreadPoolExecutor(min(len(names), 8), thread_name_prefix="storage-take") as ex:
             cols = list(ex.map(take, [block.columns[n] for n in names]))
     else:
         cols = [take(block.columns[n]) for n in names]
@@ -161,7 +162,7 @@ class Table:
     def __init__(self, name: str, schema: TableSchema):
         self.name = name
         self.schema = schema
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("table")
         # process-unique id: device-cache keys must not alias a new table
         # onto a freed one's address
         self.uid = next(_table_uid_counter)
@@ -379,12 +380,14 @@ class Table:
         before it (a statement resolves its version before it fetches),
         every pinned one and those published inside ``GC_LIFE_S``.
         Caller holds the lock."""
+        inject("storage/gc-versions")
         self.version_ts.setdefault(self.version, time.time())
         keep = {self.version, self.version - 1} | set(self._pins)
         if GC_LIFE_S > 0:
             horizon = time.time() - GC_LIFE_S
             keep |= {v for v, ts in self.version_ts.items() if ts >= horizon}
         for v in [v for v in self._versions if v not in keep]:
+            inject("storage/gc-drop-version")
             del self._versions[v]
         for v in [v for v in self.version_ts if v not in self._versions]:
             del self.version_ts[v]
@@ -435,7 +438,10 @@ class Table:
         with self._lock:
             self._check_domains(block)
             block = self._align_dictionaries(block)
-            self._check_unique(block)
+            # failpoint: a write path that skips unique maintenance, the
+            # corruption ADMIN CHECK TABLE must catch
+            if not inject("storage/append-skip-unique", False):
+                self._check_unique(block)
             landed = self.split_by_partition(block)
             self.modify_count += block.nrows
             v = self._publish(list(self._versions[self.version]) + landed)
@@ -715,6 +721,7 @@ class Table:
     ) -> int:
         """Install a transaction's committed state (blocks, dictionaries
         and the AUTO_INCREMENT allocator) under one lock acquisition."""
+        inject("storage/install-commit")
         for b in blocks:
             self._check_domains(b)
         with self._lock:

@@ -128,6 +128,9 @@ def rank_lut(d, coll):
     hit = _RANK_CACHE.get(key)
     if hit is not None and hit[0] is d:
         return hit[1]
+    from tidb_tpu_torch.utils.failpoint import inject
+
+    inject("collate/rank-lut")
     f = key_fn(coll)
     entries = [str(s) for s in d.tolist()]
     keys = [f(s) for s in entries]

@@ -12,9 +12,10 @@ item 6).
 from __future__ import annotations
 
 import re
-import threading
 from collections import OrderedDict
 from typing import List, Optional
+
+from tidb_tpu_torch.utils import racecheck
 
 class _SeenTexts:
     """The texts of the statements run, most recent last, each with its
@@ -27,7 +28,7 @@ class _SeenTexts:
         self.most, self.max_chars = most, max_chars
         self.texts: "OrderedDict[str, Optional[str]]" = OrderedDict()
         self.chars = 0
-        self.lock = threading.Lock()
+        self.lock = racecheck.make_lock("metrics.seen_texts")
 
     def add(self, sql: str) -> None:
         with self.lock:

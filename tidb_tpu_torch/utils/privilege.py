@@ -15,8 +15,9 @@ persisting the store belongs to a later slice.
 from __future__ import annotations
 
 import hashlib
-import threading
 from typing import Dict, List, Optional, Set
+
+from tidb_tpu_torch.utils import racecheck
 
 #: grantable privileges (subset of the reference's Priv bitmask,
 #: pkg/parser/mysql/privs.go)
@@ -54,7 +55,7 @@ class UserStore:
     connections against it)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = racecheck.make_lock("privilege")
         # user -> {"password": sha1sha1 bytes | None, "grants":
         #          {(db|'*', table|'*'): set of privs | {'all'}}}
         self.users: Dict[str, Dict] = {
@@ -178,3 +179,34 @@ class UserStore:
             if not out:
                 out.append(f"GRANT USAGE ON *.* TO '{user}'@'%'")
             return out
+
+    # -- persistence (BACKUP's manifest) -------------------------------
+    def to_manifest(self) -> Dict:
+        with self._lock:
+            return {
+                name: {
+                    "password": (
+                        u["password"].hex() if u["password"] else None
+                    ),
+                    "grants": [
+                        [db, tbl, sorted(privs)]
+                        for (db, tbl), privs in u["grants"].items()
+                    ],
+                }
+                for name, u in self.users.items()
+            }
+
+    @classmethod
+    def from_manifest(cls, m: Dict) -> "UserStore":
+        st = cls()
+        st.users = {}
+        for name, u in m.items():
+            st.users[name] = {
+                "password": bytes.fromhex(u["password"]) if u["password"] else None,
+                "grants": {
+                    (db, tbl): set(privs) for db, tbl, privs in u["grants"]
+                },
+            }
+        if "root" not in st.users:
+            st.users["root"] = {"password": None, "grants": {("*", "*"): {"all"}}}
+        return st

@@ -25,6 +25,7 @@ from typing import Optional
 from tidb_tpu_torch.chunk import resolve_device
 from tidb_tpu_torch.dtypes import US_PER_SECOND, Kind
 from tidb_tpu_torch.storage import scan as _scan
+from tidb_tpu_torch.utils import racecheck
 
 _log = logging.getLogger(__name__)
 
@@ -73,7 +74,7 @@ class TTLWorker:
         self.interval_s = interval_s
         self.device = resolve_device(device)
         self._stop = threading.Event()
-        self._guard = threading.Lock()
+        self._guard = racecheck.make_lock("ttl.worker")
         self._thread: Optional[threading.Thread] = None
 
     def tick(self, now_unix: Optional[float] = None) -> int:

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --partitions-only  # phases 1-3 and the partition phase only
     python3 chip_smoke.py --loads-only     # phases 1-3 and the load phase only
     python3 chip_smoke.py --durability-only  # phases 1-3 and the durability phase only
+    python3 chip_smoke.py --observability-only  # phases 1-3 and the observability phase only
 
 1. Requires CUDA (exits 2 without a card) and prints the card's name and
    power limit.
@@ -269,8 +270,8 @@
    D3; D3 boots `python3 -m tidb_tpu_torch.tidb_server --path <D1's
    directory> --config <toml> --status-port 0 -P 0` with
    TIDB_TPU_RACECHECK=1, the script's cached columns released first,
-   reads /status, /schema/tpch_d/customer, /settings and /metrics's
-   refusal, has a client in another process run the segment report
+   reads /status, /schema/tpch_d/customer, /settings and /metrics, has
+   a client in another process run the segment report
    (against numpy), 1,000 INSERTed customers, 1,000 UPDATEd balances, a
    DELETE from supplier_p and two NEXTVALs, logs in as br_reader (the
    manifest's user: a SELECT answers, an INSERT is refused), then
@@ -288,6 +289,14 @@
    watchdog stopped and joined. Each step prints its seconds, its
    statements' seconds, host->device bytes and launches; the phase its
    seconds against its 60 s (DURABILITY_LIMIT_S).
+   Then the observability phase on the tpch tables (observability_phase:
+   M1 the statement summary and the slow log over Q1, Q5, Q6 and Q18, and
+   Q6 by EXECUTE against Q6 as text; M2 TRACE of Q5; M3 information_schema.
+   tpu_engine over a cold and a warm Q6; M4 resource groups; M5 /metrics;
+   M6 PLAN REPLAYER and the recorder's cost), its seconds against its 40 s
+   (OBSERVABILITY_LIMIT_S). The recorder's entry points are timed from the
+   script on every statement of the run (``watch_recorder``), printed as
+   one `recorder:` line before the `phases:` line.
 7. Times each kernel, its plain version and the one-call PyTorch equivalent
    on the inputs phases 5 and 6 gave it, and prints them beside the least
    time the card could take: the larger of the bytes these inputs need
@@ -315,7 +324,8 @@
    bytes after every run, its peak, and its host->device bytes and
    device->host fetches per warm run.
    Phases 5, 6, the builtins, statements, server, refresh, operator,
-   index, constraint, partition, load and durability phases and 8 each
+   index, constraint, partition, load, durability and observability
+   phases and 8 each
    show that every
    kernel launched
    there: launch counts
@@ -327,13 +337,14 @@ l_suppkey GROUP BY's prefix_sum), made from a seed, and prints its rows as
 "kernel_times" with no launch counts, since no main path ran. With
 --spill-only, phases 4-7 are skipped; --refresh-only, --builtins-only,
 --statements-only, --operator-only, --indexes-only, --constraints-only,
---partitions-only, --loads-only and --durability-only generate and
-ANALYZE the SF10 tables and run that one phase. None of them prints the last line.
+--partitions-only, --loads-only, --durability-only and
+--observability-only generate and ANALYZE the SF10 tables and run that
+one phase. None of them prints the last line.
 
 Before the kernels line the full run prints one `phases:` line: every
 phase's seconds (datagen within its phase), the script's total from its
-start, and whether the partition phase kept to its 100 s and the load
-and durability phases to their 60 s.
+start, and whether the partition phase kept to its 100 s, the load and
+durability phases to their 60 s and the observability phase to its 40 s.
 
 Any failure raises; the last line is printed only when every phase passed.
 """
@@ -1126,6 +1137,11 @@ def sf10_phases(args, seen, report) -> dict:
     # --path across a restart, the status API and the watchdog over the
     # same SF10 tables ---
     timed("durability", durability_phase, cat, sess, report)
+
+    # --- the observability phase: the statement summary, the slow log,
+    # TRACE, the engine watch, resource groups, /metrics and PLAN
+    # REPLAYER over the same SF10 tables ---
+    timed("observability", observability_phase, cat, sess, report)
 
     if args.profile:
         for name, sql, _check, qs in queries + slice6:
@@ -5477,7 +5493,10 @@ def durability_phase(cat, sess, report) -> dict:
                 try:
                     with urllib.request.urlopen(f"http://127.0.0.1:{status_port}{path}",
                                                 timeout=60) as r:
-                        return r.status, json.loads(r.read())
+                        body = r.read()
+                        if r.headers.get_content_type() == "text/plain":
+                            return r.status, body.decode()
+                        return r.status, json.loads(body)
                 except urllib.error.HTTPError as e:
                     return e.code, json.loads(e.read())
 
@@ -5489,8 +5508,8 @@ def durability_phase(cat, sess, report) -> dict:
             code, settings = get("/settings")
             assert settings.get("tidb_slow_log_threshold") == "450", settings.get(
                 "tidb_slow_log_threshold")
-            code, err = get("/metrics")
-            assert code == 500 and "/metrics is not ported yet" in err["error"], err
+            code, text = get("/metrics")
+            assert code == 200 and "# TYPE tidbtpu_flight_queries_total counter" in text, text[:500]
             with open(port_file + ".tmp", "w") as f:
                 f.write(str(port))
             os.replace(port_file + ".tmp", port_file)
@@ -5671,6 +5690,430 @@ def durability_only(report) -> dict:
     return launches
 
 
+#: the observability phase's time limit (seconds), its oracles included
+OBSERVABILITY_LIMIT_S = 40.0
+#: M1's slow-log threshold (ms): Q18's warm runs (~275 ms) pass it, Q6's
+#: (~14 ms) do not
+OBS_SLOW_MS = 100
+#: M1's queries, each run this many times in a fresh session
+OBS_RUNS = 3
+#: Q6 by EXECUTE and as text, runs each (ROADMAP queue 1 item 4)
+OBS_Q6_RUNS = 20
+#: M4's group: its fill rate (RU/s), the seconds its Q6 loop runs, and
+#: the window its rate is read over (after the first second's burst)
+OBS_RU_PER_SEC = 200
+OBS_RU_LOOP_S = 4.0
+OBS_RU_SKIP_S = 1.0
+#: the columns the phase's oracles read (Q1, Q5, Q6, Q18)
+OBS_COLUMNS = {
+    "lineitem": ["l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount",
+                 "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"],
+    "customer": ["c_custkey", "c_nationkey"],
+    "supplier": ["s_suppkey", "s_nationkey"],
+    "nation": ["n_nationkey", "n_name", "n_regionkey"],
+    "region": ["r_regionkey", "r_name"],
+}
+#: Q6 with its parameters as '?', for PREPARE ... FROM
+OBS_Q6_PREPARE = ("prepare obs_q6 from 'select sum(l_extendedprice * l_discount) as revenue "
+                  "from lineitem where l_shipdate >= ? and l_shipdate < ? "
+                  "and l_discount between ? and ? and l_quantity < ?'")
+OBS_Q6_VARS = ("set @obs_d0 = '1994-01-01'", "set @obs_d1 = '1995-01-01'",
+               "set @obs_lo = 0.05", "set @obs_hi = 0.07", "set @obs_q = 24")
+OBS_Q6_EXECUTE = "execute obs_q6 using @obs_d0, @obs_d1, @obs_lo, @obs_hi, @obs_q"
+
+#: the recorder's seconds per statement over the whole script (filled by
+#: ``watch_recorder``): its entry points, the flight and engine-watch
+#: open and the close (summary, slow log, counters, bill), timed from
+#: outside the package
+RECORDER_S: list = []
+
+
+def watch_recorder() -> None:
+    """Time the recorder's two entry points on every statement from here
+    on, from the script: ``Session._open_records`` and ``_close_records``
+    (the summary, slow log and counters) on the statement's thread."""
+    from tidb_tpu_torch.session.session import Session
+
+    open_fn, close_fn = Session._open_records, Session._close_records
+    opened = threading.local()
+
+    def timed_open(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return open_fn(self, *a, **kw)
+        finally:
+            opened.s = time.perf_counter() - t0
+
+    def timed_close(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return close_fn(self, *a, **kw)
+        finally:
+            RECORDER_S.append(time.perf_counter() - t0 + getattr(opened, "s", 0.0))
+            opened.s = 0.0
+
+    Session._open_records, Session._close_records = timed_open, timed_close
+
+
+def recorder_summary() -> dict:
+    """The recorder's microseconds a statement so far: median, max."""
+    us = np.asarray(RECORDER_S) * 1e6
+    return {"statements": int(len(us)), "median_us": float(np.median(us)) if len(us) else 0.0,
+            "max_us": float(us.max()) if len(us) else 0.0}
+
+
+def observability_phase(cat, sess, report) -> dict:
+    """The observability phase over the SF10 tables: what one statement
+    leaves behind. It resets the statement summary, its history, the
+    slow log, the flight ring and the engine watch first. M1: Q1, Q5, Q6
+    and Q18 three times each in a fresh session at tidb_slow_log_threshold
+    = 100, every run's rows against numpy: one summary row a digest with
+    exec_count 3, p50 <= p95 <= p99 <= max, sum_latency against the
+    host-timed runs, the mean phases within the mean latency, rows sent,
+    plan-cache hits 2 and misses 1; slow_query holding Q18's runs with
+    their phases and plan and no warm Q6; then Q6 by EXECUTE and as text,
+    20 runs each, their mean parse, plan, compile and execute printed. M2:
+    TRACE of Q5 (span names as the CPU test's, their durations within the
+    statement's wall). M3: a cold Q6 after lineitem's cached columns are
+    released, then a warm one: tpu_engine's h2d and d2h bytes against
+    chunk.TRANSFERS, device_mem_peak_bytes beside max_memory_allocated's
+    rise. M4: a resource group of 200 RU/s runs Q6 for ~4 s (its
+    steady-state RU/s within 25% of 200, resource_groups' consumed_ru
+    agreeing), and a BURSTABLE one the same number of runs without a
+    wait. M5: /metrics from the port's status server in this process:
+    the text parses, tidbtpu_session_statements_total moved by the
+    phase's statements, histogram buckets cumulative, and
+    information_schema.metrics agrees. M6: PLAN REPLAYER DUMP of Q5 (the
+    stats JSON's row counts equal the tables'), the recorder's
+    microseconds a statement so far and the digest milliseconds of a
+    1,000-row INSERT. Returns the phase's launches."""
+    import re
+    import shutil
+    import tempfile
+    import urllib.request
+    import zipfile
+
+    import torch
+
+    from tidb_tpu_torch.bench import oracles as O
+    from tidb_tpu_torch.chunk import TRANSFERS
+    from tidb_tpu_torch.executor import kernels as K
+    from tidb_tpu_torch.obs.engine_watch import ENGINE_WATCH
+    from tidb_tpu_torch.obs.flight import FLIGHT
+    from tidb_tpu_torch.parser import parse_tokens
+    from tidb_tpu_torch.server.http_status import StatusServer
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import scan
+    from tidb_tpu_torch.utils import metrics as M
+
+    out = report["observability"] = {}
+    t_phase = time.perf_counter()
+    log(f"observability: card {card_line()}")
+    K.reset_launches()
+    for store in (M.STMT_SUMMARY, M.STMT_HISTORY, M.SLOW_LOG, FLIGHT, ENGINE_WATCH):
+        store.reset()
+    # every statement the phase runs, counted from the script (M5)
+    ran = [0]
+    execute = Session.execute
+
+    def counting(self, sql):
+        ran[0] += 1
+        return execute(self, sql)
+
+    Session.execute = counting
+    status = StatusServer(cat, port=0)
+    status_th = status.start_background()
+
+    def scrape():
+        with urllib.request.urlopen(f"http://127.0.0.1:{status.port}/metrics", timeout=30) as r:
+            return r.read().decode()
+
+    def sample(text, name):
+        m = re.search(rf"^{name} (\S+)$", text, re.M)
+        assert m, name
+        return float(m.group(1))
+
+    stmts0 = sample(scrape(), "tidbtpu_session_statements_total")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_", dir=tempfile.gettempdir())
+    try:
+        # the oracles of now (earlier phases wrote to lineitem and orders),
+        # each computed once, side by side, before the timed runs
+        t0 = time.perf_counter()
+        ora = capture_arrays(cat, OBS_COLUMNS)
+        ocat = oracle_catalog(cat, ora)
+        q18 = O.TPCH_QUERIES["q18"]
+        q18_params = O.spec_params("q18", SF)
+        with ThreadPoolExecutor(4) as pool:
+            futs = {"q1": pool.submit(O.numpy_q1, ora["lineitem"]),
+                    "q6": pool.submit(O.numpy_q6, ora["lineitem"]),
+                    "q5": pool.submit(O.numpy_q5, ocat),
+                    "q18": pool.submit(q18.oracle, ocat, **q18_params)}
+            want = {k: f.result() for k, f in futs.items()}
+        li_t = cat.table("tpch", "lineitem")
+        checks = {"q1": lambda r: check_q1(r, want["q1"], li_t),
+                  "q5": lambda r: check_q5(r, ocat, want["q5"]),
+                  "q6": lambda r: _check_q6_value(r, want["q6"]),
+                  "q18": lambda r: O.check_rows(r.rows, want["q18"], q18.order, q18.limit)}
+        sqls = {"q1": O.Q1_SQL, "q5": O.Q5_SQL, "q6": O.Q6_SQL,
+                "q18": q18.sql.format(**q18_params)}
+        out["oracles_s"] = time.perf_counter() - t0
+        log(f"observability: oracles in {out['oracles_s']:.1f}s on 4 threads")
+
+        # --- M1: the summary and the slow log ---
+        t0 = time.perf_counter()
+        s1 = Session(cat, db="tpch")
+        s1.execute(f"set tidb_slow_log_threshold = {OBS_SLOW_MS}")
+        host = {k: [] for k in sqls}
+        nrows = {}
+        for name, sql in sqls.items():
+            for _ in range(OBS_RUNS):
+                t1 = time.perf_counter()
+                res = s1.execute(sql)
+                host[name].append(time.perf_counter() - t1)
+                checks[name](res)
+                nrows[name] = len(res.rows)
+        rows = {e["digest_text"]: e for e in M.STMT_SUMMARY.rows_full()}
+        m1 = {}
+        for name, sql in sqls.items():
+            e = rows[M.sql_digest(sql)]
+            lat = (e["p50_latency"], e["p95_latency"], e["p99_latency"], e["max_latency"])
+            mean_ph = {p: v[0] / e["exec_count"] for p, v in e["phases"].items()}
+            hs = sum(host[name])
+            assert e["exec_count"] == OBS_RUNS, (name, e["exec_count"])
+            assert list(lat) == sorted(lat), (name, lat)
+            assert abs(e["sum_latency"] - hs) <= max(0.1 * hs, 0.002), (name, e["sum_latency"], hs)
+            assert sum(mean_ph.values()) <= e["sum_latency"] / OBS_RUNS, (name, mean_ph)
+            assert e["plan_cache_hits"] == OBS_RUNS - 1 and e["plan_cache_misses"] == 1, (name, e)
+            assert e["rows_sent"] == OBS_RUNS * nrows[name], (name, e["rows_sent"], nrows[name])
+            m1[name] = {"exec_count": e["exec_count"], "sum_latency_s": e["sum_latency"],
+                        "host_s": hs, "p50_s": lat[0], "p99_s": lat[2], "max_s": lat[3],
+                        "rows_sent": e["rows_sent"], "mean_phases_ms": {
+                            p: v * 1e3 for p, v in mean_ph.items()},
+                        "h2d_bytes": e["h2d_bytes"], "d2h_bytes": e["d2h_bytes"],
+                        "builds": e["jit_compilations"], "retraces": e["retraces"]}
+        slow = s1.execute("select query, query_time, phases, plan from information_schema.slow_query"
+                          ).rows
+        by = {name: [r for r in slow if r[0] == sql] for name, sql in sqls.items()}
+        assert len(by["q18"]) == OBS_RUNS, [r[1] for r in by["q18"]]
+        for _q, _t, phases, plan in by["q18"]:
+            assert "parse=" in phases and "plan=" in phases and "execute=" in phases, phases
+            assert "table=tpch.lineitem" in plan and "Aggregate" in plan, plan
+        warm_q6 = [t for t in host["q6"][1:]]
+        assert max(warm_q6) < OBS_SLOW_MS / 1e3 * 0.9, warm_q6
+        assert len(by["q6"]) == sum(t >= OBS_SLOW_MS / 1e3 for t in host["q6"]), (by["q6"], host)
+        # Q6 by EXECUTE and as text: the phases of each (ROADMAP item 4)
+        s1.execute(OBS_Q6_PREPARE)
+        for q in OBS_Q6_VARS:
+            s1.execute(q)
+        for sql in (OBS_Q6_EXECUTE, O.Q6_SQL):
+            for _ in range(OBS_Q6_RUNS):
+                checks["q6"](s1.execute(sql))
+        rows = {e["digest_text"]: e for e in M.STMT_SUMMARY.rows_full()}
+        q6_forms = {}
+        for form, sql, n in (("execute", OBS_Q6_EXECUTE, OBS_Q6_RUNS),
+                             ("text", O.Q6_SQL, OBS_Q6_RUNS + OBS_RUNS)):
+            e = rows[M.sql_digest(sql)]
+            assert e["exec_count"] == n, (form, e["exec_count"])
+            q6_forms[form] = {"runs": n, "mean_ms": e["sum_latency"] / n * 1e3, **{
+                f"{p}_ms": e["phases"].get(p, (0.0,))[0] / n * 1e3
+                for p in ("parse", "plan", "compile", "execute", "final-merge")}}
+        out["m1"] = {"s": time.perf_counter() - t0, "queries": m1,
+                     "slow_query": {k: len(v) for k, v in by.items()}, "q6_forms": q6_forms}
+        log("observability M1: " + json.dumps(out["m1"]))
+
+        # --- M2: TRACE of Q5 ---
+        t0 = time.perf_counter()
+        tr = s1.execute("trace " + O.Q5_SQL)
+        wall = time.perf_counter() - t0
+        names = [r[0] for r in tr.rows]
+        assert names == ["execute", "  session.plan", "  executor.run", "  session.materialize"], \
+            names
+        ms = [float(r[2][:-2]) / 1e3 for r in tr.rows]
+        assert sum(ms[1:]) <= ms[0] <= wall, (ms, wall)
+        out["m2"] = {"wall_s": wall,
+                     "spans_ms": {n.strip(): v * 1e3 for n, v in zip(names, ms)}}
+        log("observability M2: " + json.dumps(out["m2"]))
+
+        # --- M3: tpu_engine over a cold and a warm Q6 ---
+        t0 = time.perf_counter()
+        m3 = {}
+        for run in ("cold", "warm"):
+            if run == "cold":
+                m3["released_bytes"] = scan.release(li_t)
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            h0, d0, f0 = TRANSFERS["h2d_bytes"], TRANSFERS["d2h_bytes"], TRANSFERS["d2h_fetches"]
+            res = s1.execute(O.Q6_SQL)
+            torch.cuda.synchronize()
+            dh, dd = TRANSFERS["h2d_bytes"] - h0, TRANSFERS["d2h_bytes"] - d0
+            fetches, rise = TRANSFERS["d2h_fetches"] - f0, torch.cuda.max_memory_allocated() - a0
+            checks["q6"](res)
+            # the read's own record comes after it: the newest is Q6's
+            rec = s1.execute("select query, h2d_bytes, d2h_bytes, device_mem_peak_bytes, "
+                             "jit_compilations, retraces, duration from "
+                             "information_schema.tpu_engine order by qid desc limit 1").rows[0]
+            assert rec[0] == O.Q6_SQL and rec[1] == dh and rec[2] == dd, (run, rec, dh, dd)
+            m3[run] = {"h2d_bytes": rec[1], "d2h_bytes": rec[2], "fetches": fetches,
+                       "device_mem_peak_bytes": rec[3], "max_allocated_rise": rise,
+                       "builds": rec[4], "retraces": rec[5], "s": rec[6]}
+        assert m3["cold"]["h2d_bytes"] > 0 and m3["warm"]["h2d_bytes"] == 0, m3
+        m3["s"] = time.perf_counter() - t0
+        out["m3"] = m3
+        log("observability M3: " + json.dumps(m3))
+
+        # --- M4: resource groups ---
+        t0 = time.perf_counter()
+        rg = cat.resource_groups
+        acquire = rg.acquire
+        waits = []
+
+        def recording(*a, **kw):
+            w = acquire(*a, **kw)
+            waits.append(w)
+            return w
+
+        rg.acquire = recording
+        try:
+            s4 = Session(cat, db="tpch")
+            s4.execute(f"create resource group obs_rg ru_per_sec = {OBS_RU_PER_SEC}")
+            s4.execute(f"create resource group obs_burst ru_per_sec = {OBS_RU_PER_SEC} burstable")
+            s4.execute("set resource group obs_rg")
+            g = rg.get("obs_rg")
+            waits.clear()
+            trail = []  # (seconds into the loop, the group's consumed RU)
+            ru0, billed, t_loop = g.consumed_ru, 0.0, time.perf_counter()
+            while time.perf_counter() - t_loop < OBS_RU_LOOP_S:
+                t1 = time.perf_counter()
+                res = s4.execute(O.Q6_SQL)
+                billed += (time.perf_counter() - t1 - waits[-1]) * 1e3
+                trail.append((time.perf_counter() - t_loop, g.consumed_ru))
+                checks["q6"](res)
+            throttled = len(trail)
+            waited_runs = sum(w > 0.001 for w in waits)
+            steady = [(t, c) for t, c in trail if t >= OBS_RU_SKIP_S]
+            rate = (steady[-1][1] - steady[0][1]) / (steady[-1][0] - steady[0][0])
+            consumed = s4.execute("select consumed_ru, queries from information_schema."
+                                  "resource_groups where name = 'obs_rg'").rows[0]
+            assert abs(rate - OBS_RU_PER_SEC) <= 0.25 * OBS_RU_PER_SEC, (rate, trail[-5:])
+            assert abs(consumed[0] - round(trail[-1][1], 3)) <= 0.001, (consumed, trail[-1])
+            # each statement billed its own milliseconds, never its wait
+            assert abs(trail[-1][1] - ru0 - billed) <= 0.1 * billed + 2, (trail[-1][1] - ru0, billed)
+            assert waited_runs > 0, waits
+            s4.execute("set resource group obs_burst")
+            waits.clear()
+            t1 = time.perf_counter()
+            for _ in range(throttled):
+                checks["q6"](s4.execute(O.Q6_SQL))
+            burst_s = time.perf_counter() - t1
+            assert len(waits) == throttled and max(waits) < 0.001, (len(waits), max(waits))
+            burst_ru = rg.get("obs_burst").consumed_ru
+            s4.execute("set resource group default")
+            s4.execute("drop resource group obs_rg")
+            s4.execute("drop resource group obs_burst")
+        finally:
+            del rg.acquire
+        out["m4"] = {"s": time.perf_counter() - t0, "throttled_runs": throttled,
+                     "runs_that_waited": waited_runs, "ru_per_s": rate,
+                     "consumed_ru": consumed[0], "queries": consumed[1],
+                     "burstable_runs_s": burst_s, "burstable_ru": burst_ru,
+                     "burstable_max_wait_s": max(waits)}
+        log("observability M4: " + json.dumps(out["m4"]))
+
+        # --- M5: /metrics ---
+        t0 = time.perf_counter()
+        text = scrape()
+        sample_re = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})?\s(-?[0-9.e+-]+|NaN)$")
+        lines = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+        bad = [ln for ln in lines if not sample_re.match(ln)]
+        assert not bad, bad[:5]
+        moved = sample(text, "tidbtpu_session_statements_total") - stmts0
+        assert moved == ran[0], (moved, ran[0])
+        for fam in ("tidbtpu_session_query_duration_seconds", "tidbtpu_flight_query_seconds"):
+            counts = [float(v) for v in re.findall(rf"^{fam}_bucket\{{le=\"[^\"]+\"\}} (\S+)$",
+                                                   text, re.M)]
+            assert counts == sorted(counts) and counts[-1] == sample(text, f"{fam}_count"), fam
+        table = dict(s1.execute("select name, value from information_schema.metrics").rows)
+        for name in ("tidbtpu_session_statements_total", "tidbtpu_engine_h2d_bytes",
+                     "tidbtpu_executor_plan_cache_hits_total"):
+            assert table[name] == sample(text, name), (name, table[name])
+        out["m5"] = {"s": time.perf_counter() - t0, "samples": len(lines),
+                     "families": text.count("# TYPE "), "statements": int(moved)}
+        log("observability M5: " + json.dumps(out["m5"]))
+
+        # --- M6: PLAN REPLAYER, the recorder's cost ---
+        t0 = time.perf_counter()
+        q5_tables = ["customer", "orders", "lineitem", "supplier", "nation", "region"]
+        stale = [t for t in q5_tables if not cat.table("tpch", t).stats
+                 or next(iter(cat.table("tpch", t).stats.values())).row_count
+                 != cat.table("tpch", t).nrows]
+        t1 = time.perf_counter()
+        for t in stale:
+            s1.execute(f"analyze table {t}")
+        analyze_s = time.perf_counter() - t1
+        os.environ["TIDB_TPU_PLAN_REPLAYER_DIR"] = tmp
+        try:
+            (fn,), = s1.execute("plan replayer dump explain " + O.Q5_SQL).rows
+        finally:
+            del os.environ["TIDB_TPU_PLAN_REPLAYER_DIR"]
+        with zipfile.ZipFile(fn) as z:
+            members = sorted(z.namelist())
+            for t in q5_tables:
+                st = json.loads(z.read(f"stats/tpch.{t}.json"))
+                n = cat.table("tpch", t).nrows
+                assert st and all(c["row_count"] == n for c in st.values()), (t, n)
+        b = li_t.blocks()[0]
+        cols = {c: (np.asarray(li_t.dictionaries[c], dtype=object)[b.columns[c].data[:1000]]
+                    if k == "str" else b.columns[c].data[:1000]) for c, k in LINEITEM_KINDS}
+        text = insert_sql("lineitem", LINEITEM_KINDS, cols, 0, 1000)
+        _stmts, toks = parse_tokens(text)
+        digest_ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            M.digest_tokens(toks)
+            digest_ms.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        M.sql_digest(text)
+        retokenized_ms = (time.perf_counter() - t1) * 1e3
+        out["m6"] = {"s": time.perf_counter() - t0, "stale_analyzed": stale,
+                     "analyze_s": analyze_s, "zip_members": len(members),
+                     "insert_chars": len(text), "digest_ms": float(np.median(digest_ms)),
+                     "sql_digest_ms": retokenized_ms, "recorder": recorder_summary()}
+        log("observability M6: " + json.dumps(out["m6"]))
+    finally:
+        Session.execute = execute
+        status.shutdown()
+        status_th.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = dict(K.LAUNCHES)
+    log(f"observability: phase {out['phase_s']:.1f}s of {OBSERVABILITY_LIMIT_S:.0f}s, launches "
+        + json.dumps(out["launches"]))
+    return dict(K.LAUNCHES)
+
+
+def observability_only(report) -> dict:
+    """The SF10 tables, ANALYZEd, and the observability phase alone: the
+    short loop for observability work. Returns the phase's launches."""
+    from tidb_tpu_torch.bench import load_tpch
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.storage import Catalog
+
+    t0 = time.perf_counter()
+    cat = Catalog()
+    load_tpch(cat, sf=SF, seed=1, tables=TABLES)
+    sess = Session(cat, db="tpch")
+    for t in TABLES:
+        sess.execute(f"analyze table {t}")
+    log(f"datagen and analyze: SF{SF:g} in {time.perf_counter() - t0:.1f}s")
+    launches = observability_phase(cat, sess, report)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched in the observability phase"
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -5709,6 +6152,9 @@ def main() -> int:
     ap.add_argument("--durability-only", action="store_true",
                     help="build and check the kernels, generate and ANALYZE the SF10 tables "
                          "and run the durability phase only: no last line")
+    ap.add_argument("--observability-only", action="store_true",
+                    help="build and check the kernels, generate and ANALYZE the SF10 tables "
+                         "and run the observability phase only: no last line")
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -5717,6 +6163,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    watch_recorder()
     from tidb_tpu_torch import _build
     from tidb_tpu_torch.chunk import TRANSFERS, reset_transfers
     from tidb_tpu_torch.executor import kernels as K
@@ -5785,6 +6232,11 @@ def main() -> int:
         log(json.dumps({"durability": durability_only(report)}))
         log(card)
         return 0
+    if args.observability_only:
+        log(json.dumps({"observability": observability_only(report)}))
+        log("recorder: " + json.dumps(recorder_summary()))
+        log(card)
+        return 0
     if not args.spill_only:
         seen = {}
         launches.update(sf10_phases(args, seen, report))
@@ -5819,12 +6271,15 @@ def main() -> int:
     for row in kernels:
         row["launches"] = totals[row["name"]]
     phase_s = report["phase_s"]
+    log("recorder: " + json.dumps(recorder_summary()))
     log("phases: " + json.dumps({
         "seconds": phase_s, "total_s": time.perf_counter() - t_script,
         "partitions_within_limit": phase_s["partitions"] <= PARTITION_LIMIT_S,
         "loads": phase_s["loads"], "loads_within_limit": phase_s["loads"] <= LOAD_LIMIT_S,
         "durability": phase_s["durability"],
-        "durability_within_limit": phase_s["durability"] <= DURABILITY_LIMIT_S}))
+        "durability_within_limit": phase_s["durability"] <= DURABILITY_LIMIT_S,
+        "observability": phase_s["observability"],
+        "observability_within_limit": phase_s["observability"] <= OBSERVABILITY_LIMIT_S}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,9 @@ Shapes: tests/test_config.py's four ``Config`` cases and its binary
 round trip (the port's binary with ``--store cpu``, ``--config``,
 ``--path`` and ``--status-port``: loaded on boot, written over the wire,
 snapshotted on SIGTERM); the status endpoints against the JAX
-``StatusServer`` and the named refusals; tests/test_watchdog.py's cases
-(the expensive-query entry in the slow log waits for the slow log: the
-port keeps the flag); and a KILL that ends a statement waiting on a table
-lock. Every join, wait and subprocess has a timeout.
+``StatusServer`` (``/metrics``' families) and the named refusals;
+tests/test_watchdog.py's cases; and a KILL that ends a statement waiting
+on a table lock. Every join, wait and subprocess has a timeout.
 """
 
 import json
@@ -83,9 +82,17 @@ def test_config_variables_seed_globals():
 def _get(port, path):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
-            return r.status, json.loads(r.read())
+            body = r.read()
+            if r.headers.get_content_type() == "text/plain":
+                return r.status, body.decode()
+            return r.status, json.loads(body)
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
+
+
+def _families(text):
+    """{family: kind} of a Prometheus text exposition."""
+    return dict(ln.split()[2:4] for ln in text.splitlines() if ln.startswith("# TYPE "))
 
 
 def test_binary_persistence_roundtrip_config_and_status(tmp_path):
@@ -126,8 +133,8 @@ def test_binary_persistence_roundtrip_config_and_status(tmp_path):
         assert code == 200 and st["connections"] == 1, st
         assert _get(status_port, "/schema/test/cfg_t")[1]["rows"] == 3
         assert _get(status_port, "/settings")[1]["tidb_slow_log_threshold"] == "9"
-        code, err = _get(status_port, "/metrics")
-        assert code == 500 and "/metrics is not ported yet" in err["error"], err
+        code, text = _get(status_port, "/metrics")
+        assert code == 200 and _families(text)["tidbtpu_session_statements_total"] == "counter"
         c.sock.close()
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=60)
@@ -177,7 +184,14 @@ def test_status_endpoints_match_jax_and_refuse_by_name():
         assert code == 200 and st["connections"] == 0 and st["version"].startswith("8.0.11")
         code, err = _get(srv.status_server.port, "/schema/app/nope")
         assert code == 500 and "unknown table" in err["error"]
-        for path, item in (("/metrics", "item 6"), ("/tsdb", "item 6"), ("/profile", "item 6"),
+        # /metrics serves the registry as the JAX endpoint does: both
+        # render the same families with the same kinds where both have them
+        code, text = _get(srv.status_server.port, "/metrics")
+        jcode, jtext = _get(jst.port, "/metrics")
+        fams, jfams = _families(text), _families(jtext)
+        assert code == jcode == 200 and fams["tidbtpu_session_statements_total"] == "counter"
+        assert all(jfams[f] == k for f, k in fams.items() if f in jfams), (fams, jfams)
+        for path, item in (("/tsdb", "item 6"), ("/profile", "item 6"),
                            ("/timeline", "item 6"), ("/inspection", "item 6"),
                            ("/dcn", "item 8"), ("/links", "item 8")):
             code, err = _get(srv.status_server.port, path)
@@ -230,7 +244,11 @@ def _sleeper(s, seconds, errors):
 @pytest.mark.parametrize("slow_log", ["1", "0"])
 def test_expensive_query_flagged(slow_log):
     """The expensive-query flag fires past the threshold with the slow
-    log on or off (the slow-log entry itself waits for the slow log)."""
+    log on or off; its ``[expensive_query]`` entry lands in the slow log
+    only while ``slow_query_log`` is on (tests/test_watchdog.py)."""
+    from tidb_tpu_torch.utils.metrics import SLOW_LOG
+
+    SLOW_LOG.reset()
     cat = Catalog()
     s = Session(cat, device="cpu")
     s.execute(f"set global slow_query_log = {slow_log}")
@@ -245,6 +263,8 @@ def test_expensive_query_flagged(slow_log):
     t.join(timeout=10)
     assert not t.is_alive() and wd.expensive_seen
     assert {k[0] for k in wd.expensive_seen} == {s.conn_id}
+    entries = [r for r in SLOW_LOG.rows() if r[1].startswith(f"[expensive_query] conn={s.conn_id} ")]
+    assert len(entries) == (1 if slow_log == "1" else 0), entries
 
 
 def test_memory_limit_kills_top_consumer_as_jax():

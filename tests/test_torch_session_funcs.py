@@ -171,19 +171,3 @@ def test_other_sessions_run_while_a_sleep_waits():
         assert took < 1.0, took
         got.append([tuple(int(x) for x in r) for r in rows])
     assert got[0] == got[1] == [(50, 2)]
-
-
-def test_statement_texts_are_bounded_and_normalized_when_read():
-    """The texts TIDB_DECODE_SQL_DIGESTS reads: the last `most` of them,
-    evicted oldest first past `max_chars` too (one text always stays),
-    each normalized once when read."""
-    from tidb_tpu_torch.utils.metrics import _SeenTexts, sql_digest
-
-    seen = _SeenTexts(most=3, max_chars=60)
-    for c in "abcd":
-        seen.add(f"select {c} from t")
-    assert seen.digests() == [sql_digest(f"select {c} from t") for c in "bcd"]
-    assert list(seen.texts.values()) == seen.digests()
-    long = "select e from t where " + "x = 1 and " * 5 + "y = 2"
-    seen.add(long)
-    assert seen.digests() == [sql_digest(long)] and seen.chars == len(long)

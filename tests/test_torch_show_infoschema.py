@@ -1,9 +1,9 @@
 """SHOW, DO, the no-op statements and information_schema in the port
 against the JAX package: every SHOW form and every ported
-information_schema table of this slice gives the JAX Session's rows, and
-each table or form that stays refused raises ``NotImplementedError``
-naming itself (the shapes of tests/test_aux.py and
-test_ddl_infoschema.py)."""
+information_schema table gives the JAX Session's rows (the diagnostic
+tables on their stable columns), and each table or form that stays
+refused raises ``NotImplementedError`` naming itself (the shapes of
+tests/test_aux.py and test_ddl_infoschema.py)."""
 
 import pytest
 
@@ -184,6 +184,51 @@ def test_memory_usage_tables_match_jax(name):
         cols = sess.execute(f"select * from information_schema.{name}").columns
         got.append((cols, sess.execute(f"select {stable} from information_schema.{name}").rows))
     assert got[0] == got[1], got
+
+
+#: the diagnostic tables refused by name until the statement's record
+#: (the metrics registry, the flight recorder, the engine watch and
+#: resource groups) was ported, each with a read of its stable columns
+ONCE_REFUSED = {
+    "metrics": "select name, kind from information_schema.metrics "
+               "where name = 'tidbtpu_session_statements_total'",
+    "resource_groups": "select name, ru_per_sec, burstable, queries "
+                       "from information_schema.resource_groups order by name",
+    "slow_query": "select query, digest, conn_id from information_schema.slow_query "
+                  "where query like '%is_marker%' order by time",
+    "statements_summary": "select digest_text, exec_count, rows_sent "
+                          "from information_schema.statements_summary "
+                          "where digest_text like '%is_marker%' order by digest_text",
+    "statements_summary_history": "select digest_text, exec_count "
+                                  "from information_schema.statements_summary_history "
+                                  "where digest_text like '%is_marker%' order by digest_text",
+    "tpu_engine": "select query from information_schema.tpu_engine "
+                  "where query like '%is_marker%' order by qid",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
+def test_diagnostic_tables_once_refused_match_jax(name):
+    """Each gives the JAX Session's columns, and its stable columns'
+    rows after the same statements (each package reads its own stores)."""
+    from tidb_tpu.utils import metrics as jm
+    from tidb_tpu_torch.utils import metrics as tm
+
+    got = []
+    for sess, m in ((JaxSession(JaxCatalog()), jm), (Session(Catalog(), device="cpu"), tm)):
+        sess.execute(f"create table is_marker_{name} (a int)")
+        sess.execute(f"insert into is_marker_{name} values (1), (2), (3)")
+        sess.execute("create resource group rg_is ru_per_sec = 500")
+        sess.execute("set tidb_slow_log_threshold = 0")
+        for k in (1, 2):
+            sess.execute(f"select count(*) from is_marker_{name} where a > {k}")
+        m.STMT_HISTORY.rotate(m.STMT_SUMMARY)
+        cols = sess.execute(f"select * from information_schema.{name}").columns
+        rows = sess.execute(ONCE_REFUSED[name]).rows
+        sess.execute("use information_schema")
+        n = sess.execute(f"select count(*) from {name}").rows[0][0]
+        got.append((cols, rows, n > 0))
+    assert got[0] == got[1] and got[1][1] and got[1][2], got
 
 
 @pytest.mark.parametrize("name", sorted(IS_UNPORTED))

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from tidb_tpu_torch.dtypes import Kind, SQLType
+from tidb_tpu_torch.obs.engine_watch import ENGINE_WATCH
 
 # Fixed tile ladder (rows). Mirrors the reference's paging growth
 # 128 -> 50k (pkg/util/paging/paging.go:25-28) but with powers of two so a
@@ -216,10 +217,17 @@ class Batch:
         return self.row_valid.device
 
 
+def count_h2d(nbytes: int) -> None:
+    """Host->device bytes: TRANSFERS and the engine watch's statement
+    record, at the same sites, so the two agree to the byte."""
+    TRANSFERS["h2d_bytes"] += nbytes
+    ENGINE_WATCH.note_h2d(nbytes)
+
+
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
     """One host array -> device tensor, counted in TRANSFERS."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
-    TRANSFERS["h2d_bytes"] += arr.nbytes
+    count_h2d(arr.nbytes)
     return t.to(device)
 
 
@@ -257,6 +265,7 @@ def fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in tensors])
     host = flat.cpu().numpy()
     TRANSFERS["d2h_bytes"] += host.nbytes
+    ENGINE_WATCH.note_d2h(host.nbytes)
     out, off = [], 0
     for t in tensors:
         nb = t.numel() * t.element_size()

@@ -3129,6 +3129,13 @@ class Parser:
 
 def parse(sql: str):
     """Parse one or more ;-separated statements; returns a list."""
+    return parse_tokens(sql)[0]
+
+
+def parse_tokens(sql: str):
+    """``parse``, and the tokens it read: the statement digest is built
+    from them (``utils.metrics.digest_tokens``), so no text is tokenized
+    twice. The parse never changes a token."""
     p = Parser(sql)
     stmts = []
     while p.cur.kind != "eof":
@@ -3137,7 +3144,7 @@ def parse(sql: str):
         stmts.append(p.parse_stmt())
         if p.cur.kind not in ("eof",) and not p.at_op(";"):
             raise ParseError(f"trailing input at {p.cur.pos}: {p.cur.text!r}")
-    return stmts
+    return stmts, p.toks
 
 
 def parse_expr(sql: str):

@@ -62,11 +62,14 @@ from tidb_tpu_torch.executor.sort import order_by
 from tidb_tpu_torch.executor.window import WindowDesc, window_op
 from tidb_tpu_torch.expression.expr import ColumnRef, Expr
 from tidb_tpu_torch.expression.kernels import _DeviceLUT, compile_expr
+from tidb_tpu_torch.obs.engine_watch import ENGINE_WATCH
+from tidb_tpu_torch.obs.flight import FLIGHT
 from tidb_tpu_torch.planner import logical as L
 from tidb_tpu_torch.planner.logical import ROWID_NAME
 from tidb_tpu_torch.storage.scan import scan_table
 from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.memtrack import MemoryTracker, QuotaExceeded, batch_bytes
+from tidb_tpu_torch.utils.metrics import REGISTRY
 
 Dicts = Dict[str, np.ndarray]
 # node function: (inputs by scan id, caps by node id) -> (batch, needs dict)
@@ -824,7 +827,15 @@ class PlanCompiler:
         return self._next_id
 
     def compile(self, plan: L.LogicalPlan) -> CompiledQuery:
+        """Build the plan's function. A build is the engine watch's
+        ``jit_compilations`` (another of a signature built before, its
+        ``retraces``) and the flight's ``compile`` phase."""
+        t0 = time.perf_counter()
         fn, dicts = self._build(plan)
+        sig = (plan_fingerprint(plan),
+               tuple((sc.db, sc.table, self.resolver(sc.db, sc.table)[0].uid) for sc in self.scans))
+        ENGINE_WATCH.note_trace(sig)
+        FLIGHT.note_phase("compile", time.perf_counter() - t0)
         # bounds/uniqueness entries are compile-time plumbing; result
         # consumers expect name -> dictionary only (reserved prefixes
         # start with NUL)
@@ -1688,6 +1699,12 @@ class PhysicalExecutor:
                     if streamed is not None:
                         return streamed
                     cq = None if conservative or baked else self._cache.get(key)
+                    if not (conservative or baked):
+                        FLIGHT.note_plan_cache(cq is not None, key=key)
+                        if cq is not None:
+                            REGISTRY.counter("tidbtpu_executor_plan_cache_hits_total").inc()
+                        else:
+                            REGISTRY.counter("tidbtpu_executor_plan_cache_misses_total").inc()
                     if cq is None:
                         cq = PlanCompiler(
                             self.catalog, resolver=self._resolve, conservative=conservative,
@@ -1806,6 +1823,7 @@ class PhysicalExecutor:
                       for nid, b in inputs.items()}
         node_bytes = {nid: 2 * cap * cq.widths.get(nid, 64) for nid, cap in caps.items()}
         self.last_working_set = sum(scan_bytes.values()) + sum(node_bytes.values())
+        ENGINE_WATCH.note_device_mem(self.last_working_set)
         if not self.quota_bytes:
             return
         inject("executor/admission")
@@ -1895,6 +1913,7 @@ class PhysicalExecutor:
                 caps.pop(_OUT_NODE)
                 bumped = True
             if bumped:
+                ENGINE_WATCH.note_resize()
                 continue
             # shrink every knob to the tight tile of its true cardinality
             for nid, n in true_n.items():

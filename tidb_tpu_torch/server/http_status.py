@@ -1,18 +1,18 @@
-"""HTTP status API: /status, /schema, /settings.
+"""HTTP status API: /status, /metrics, /schema, /settings.
 
 Counterpart of tidb_tpu/server/http_status.py. Reference:
 pkg/server/http_status.go — the side port serving liveness (`/status`,
-with the live MySQL connection count), schema introspection (`/schema`,
-`/schema/<db>`, `/schema/<db>/<table>`, backed by the catalog) and the
-GLOBAL settings (`/settings`).
+with the live MySQL connection count), the metrics registry in
+Prometheus text (`/metrics`, utils/metrics.py), schema introspection
+(`/schema`, `/schema/<db>`, `/schema/<db>/<table>`, backed by the
+catalog) and the GLOBAL settings (`/settings`).
 
-The JAX package's other endpoints wait for their modules: `/metrics`
-and `/profile` for the metrics registry and Top SQL, `/timeline*`,
-`/tsdb` and `/inspection` for the rest of observability (ROADMAP.md
-queue 1, item 6), `/dcn` and `/links` for the multi-host tier (item 8).
-Each raises ``NotImplementedError`` naming itself and its item, and the
-handler's exception path answers it as the JAX package answers any
-failure: HTTP 500 with ``{"error": "..."}``.
+The JAX package's other endpoints wait for their modules: `/profile`,
+`/timeline*`, `/tsdb` and `/inspection` for the time-series tier
+(ROADMAP.md queue 1, item 6), `/dcn` and `/links` for the multi-host
+tier (item 8). Each raises ``NotImplementedError`` naming itself and its
+item, and the handler's exception path answers it as the JAX package
+answers any failure: HTTP 500 with ``{"error": "..."}``.
 """
 
 from __future__ import annotations
@@ -23,13 +23,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 #: endpoint -> the ROADMAP.md item it waits for
 UNPORTED_ENDPOINTS = {
-    "/metrics": "item 6, observability",
-    "/profile": "item 6, observability",
-    "/timeline": "item 6, observability",
-    "/timeline/start": "item 6, observability",
-    "/timeline/stop": "item 6, observability",
-    "/tsdb": "item 6, observability",
-    "/inspection": "item 6, observability",
+    "/profile": "item 6, the time-series tier",
+    "/timeline": "item 6, the time-series tier",
+    "/timeline/start": "item 6, the time-series tier",
+    "/timeline/stop": "item 6, the time-series tier",
+    "/tsdb": "item 6, the time-series tier",
+    "/inspection": "item 6, the time-series tier",
     "/dcn": "item 8, multi-host execution",
     "/links": "item 8, multi-host execution",
 }
@@ -76,6 +75,10 @@ class StatusServer:
                             "version": f"8.0.11-tidb-tpu-{ver}",
                             "git_hash": "embedded",
                         }))
+                    elif path == "/metrics":
+                        from tidb_tpu_torch.utils.metrics import REGISTRY
+
+                        self._send(200, REGISTRY.render(), "text/plain; version=0.0.4")
                     elif path == "/schema":
                         out = {}
                         for db in outer.catalog.databases():

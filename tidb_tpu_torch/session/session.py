@@ -25,8 +25,8 @@ executor per statement; the STREAM_ROWS(n) hint for one statement.
 
 information_schema: ``tables``, ``columns``, ``schemata``,
 ``statistics``, ``table_constraints``, ``key_column_usage``,
-``referential_constraints``, ``views``, ``sequences`` and ``partitions``
-(storage/catalog.py).
+``referential_constraints``, ``views``, ``sequences``, ``partitions`` and
+the diagnostic tables of the moment (storage/catalog.py).
 
 Stale reads: ``AS OF TIMESTAMP``, ``tidb_snapshot`` (which also refuses
 writes) and ``tidb_read_staleness`` read a table's version of that time
@@ -61,8 +61,20 @@ for its statement. An autocommit DML that changed more than
 ``tidb_auto_analyze_ratio`` of a table re-analyzes it. Conflicts of
 REPLACE, ON DUPLICATE KEY UPDATE and INSERT IGNORE resolve against the
 PRIMARY KEY and every UNIQUE index, in the encoded domain.
-information_schema's diagnostic tables and metrics_schema raise
-``NotImplementedError`` naming themselves.
+
+The statement's record: each top-level statement has a flight
+(obs/flight.py: its parse, plan, compile, execute and final-merge) and an
+engine-watch record (obs/engine_watch.py: plan builds, transfers, device
+memory) open on its thread; after the device's statement lock is let go
+it lands in the statement summary, the slow log and the counters
+(``_observe_stmt``, utils/metrics.py), keyed by a digest made from the
+parse's own tokens. TRACE returns the statement's spans
+(utils/tracing.py), PLAN REPLAYER DUMP writes its zip
+(utils/planreplayer.py), and CREATE / ALTER / DROP RESOURCE GROUP and SET
+RESOURCE GROUP bill each statement in request units, its wait for the
+group's bucket taken before any lock (utils/resgroup.py).
+information_schema's time-series and multi-host tables and
+metrics_schema raise ``NotImplementedError`` naming themselves.
 
 Bulk loads and checks: LOAD DATA [LOCAL] INFILE (storage/loader.py, the
 native splitter where the JAX package takes it; a constrained table is
@@ -143,7 +155,9 @@ from tidb_tpu_torch.dtypes import (
 from tidb_tpu_torch.expression.expr import Literal, _mysql_numeric_prefix, literal_type
 from tidb_tpu_torch.expression.hostfns import sql_like_match
 from tidb_tpu_torch.expression.kernels import compile_expr, string_expr
-from tidb_tpu_torch.parser import ast, parse
+from tidb_tpu_torch.obs.engine_watch import ENGINE_WATCH
+from tidb_tpu_torch.obs.flight import FLIGHT, c_slow_captures
+from tidb_tpu_torch.parser import ast, parse, parse_tokens
 from tidb_tpu_torch.planner import build_query
 from tidb_tpu_torch.planner.logical import ExprBinder, Schema, _display_name, _scalar_subq
 from tidb_tpu_torch.planner.physical import PhysicalExecutor, StaleWidthsError
@@ -166,10 +180,13 @@ from tidb_tpu_torch.utils import racecheck
 from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.collate import CHARSET_DEFAULTS
 from tidb_tpu_torch.utils.checkeval import check_columns
-from tidb_tpu_torch.utils.metrics import record_digest, seen_digests, sql_digest
+from tidb_tpu_torch.utils.metrics import (
+    REGISTRY, SLOW_LOG, STMT_HISTORY, STMT_SUMMARY, digest_tokens, sql_digest,
+)
 from tidb_tpu_torch.utils import sqlkiller as _sk
 from tidb_tpu_torch.utils.sqlkiller import SQLKiller
 from tidb_tpu_torch.utils.sysvar import SysVars
+from tidb_tpu_torch.utils.tracing import Tracer
 
 _READS = (ast.Select, ast.Union, ast.With, ast.SetOp)
 _DML = (ast.Insert, ast.Update, ast.Delete, ast.LoadData)
@@ -192,6 +209,11 @@ _USER_LOCK_FUNCS = ("get_lock", "release_lock", "is_free_lock", "is_used_lock",
 # process-unique names of recursive CTEs' scratch tables: the scratch
 # database is shared by every session of a catalog
 _cte_scratch_seq = itertools.count(1)
+
+#: the statement counters (utils/metrics.py REGISTRY)
+_C_STATEMENTS = REGISTRY.counter("tidbtpu_session_statements_total", "statements executed")
+_C_ERRORS = REGISTRY.counter("tidbtpu_session_statement_errors_total", "failed statements")
+_H_LATENCY = REGISTRY.histogram("tidbtpu_session_query_duration_seconds", "statement latency")
 
 _STATEMENT_LOCKS: Dict[str, object] = {}
 _STATEMENT_LOCKS_GUARD = racecheck.make_lock("session.statement_guard")
@@ -517,18 +539,31 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         self._stale_ok = False
         # LASTVAL() per (db, sequence): this session's last NEXTVAL
         self._seq_lastval: Dict[tuple, int] = {}
+        # TRACE's spans, the plan of the last read (the slow log's plan
+        # capture) and the resource group statements are billed to
+        self.tracer = Tracer()
+        self._last_plan = None
+        self._reads_open = 0  # _run_select's depth: only the outer one is phased
+        self.resource_group = "default"
         # its advisory locks (GET_LOCK) go with the session
         weakref.finalize(self, _release_session_locks, base, self.conn_id)
 
     def execute(self, sql: str) -> Result:
+        t_parse = time.perf_counter()
+        stmts, toks = parse_tokens(sql)
+        parse_s = time.perf_counter() - t_parse
         res = Result([], [])
-        stmts = parse(sql)
-        for s in stmts:
+        for i, s in enumerate(stmts):
             if len(stmts) == 1:
-                # a single statement's text: its digest matches bindings
-                # and SHOW PROCESSLIST prints it
+                # a single statement's text: its digest (from the parse's
+                # own tokens) matches bindings and keys the statement
+                # summary, and SHOW PROCESSLIST prints it; a batch's
+                # statements are digested by their kind, as in the JAX
+                # package
                 s._source_sql = sql
-            res = self._run_top(s)
+                s._source_toks = toks
+            # the batch parses once: its parse is the first statement's
+            res = self._run_top(s, parse_s if i == 0 else 0.0, t_parse if i == 0 else None)
         return res
 
     def close(self) -> None:
@@ -536,13 +571,21 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         its table locks and pins."""
         self._abort_txn()
 
-    def _run_top(self, s) -> Result:
+    def _run_top(self, s, parse_s: float = 0.0, t_start: Optional[float] = None) -> Result:
         """One statement: the table locks it needs first, waiting
         outside the statement lock, then its execution inside it.
         Statement-scoped locks are released when it ends. EXECUTE binds
         first, so that the bound statement takes its own locks here. KILL
         and SHOW PROCESSLIST touch host state only and take no lock: a
-        KILL must reach a statement that holds the statement lock."""
+        KILL must reach a statement that holds the statement lock.
+
+        A top-level statement has a flight and an engine-watch record
+        open on this thread while it runs (``parse_s`` is its parse,
+        ``t_start`` when the parse began). Its session's resource group
+        gates it before the table locks, with the killer armed, and bills
+        it after. The statement summary, the slow log and the counters
+        take it after the statement lock is let go, so that no other
+        connection waits on them."""
         if self._killed_conn:
             raise ConnectionError(f"connection {self.conn_id} was killed")
         if isinstance(s, ast.ExecuteStmt):
@@ -551,33 +594,159 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
                 if v not in self.user_vars:
                     raise ValueError(f"user variable @{v} is not set")
                 vals.append(self.user_vars[v])
-            return self.execute_prepared(s.name, vals)
-        self._check_ported(s)
-        if isinstance(s, ast.Kill) or (isinstance(s, ast.Show) and s.what == "processlist"):
-            return self._execute_stmt(s)
+            return self.execute_prepared(s.name, vals, _source=(s, parse_s, t_start))
+        inner = s.stmt if isinstance(s, ast.Trace) else s
+        self._check_ported(inner)
         top = self._depth == 0
+        t0 = time.perf_counter() if t_start is None else t_start
         if top:
-            # armed and listed before the table locks: a KILL, the
-            # watchdog or the deadline ends a statement waiting on a lock
-            # too, and SHOW PROCESSLIST shows it waiting
-            limit_ms = int(self.vars.get("max_execution_time") or 0)
-            self.killer.clear(
-                deadline=time.monotonic() + limit_ms / 1000.0 if limit_ms else 0.0)
-            self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
+            self._open_records(s, parse_s)
+        waited = 0.0
+        bill_t0 = t0 if top else None
         try:
-            release = self._take_locks(s)
-            try:
-                with statement_lock(self.device):
-                    t0 = time.perf_counter()
-                    res = self._execute_stmt(s)
-                    res.elapsed_s = time.perf_counter() - t0
-            finally:
-                release()
-        finally:
+            if isinstance(s, ast.Kill) or (isinstance(s, ast.Show) and s.what == "processlist"):
+                res = self._execute_stmt(s)
+            else:
+                if top:
+                    # armed and listed before the RU gate and the table
+                    # locks: a KILL, the watchdog or the deadline ends a
+                    # statement waiting on either, and SHOW PROCESSLIST
+                    # shows it waiting
+                    limit_ms = int(self.vars.get("max_execution_time") or 0)
+                    self.killer.clear(
+                        deadline=time.monotonic() + limit_ms / 1000.0 if limit_ms else 0.0)
+                    self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
+                try:
+                    if top and self.resource_group != "default":
+                        # RU governance: wait while the group's bucket is
+                        # overdrawn; the wait is not billed
+                        bill_t0 = None
+                        waited = self.catalog.resource_groups.acquire(
+                            self.resource_group, kill_check=self.killer.check)
+                        bill_t0 = time.perf_counter()
+                    release = self._take_locks(inner)
+                    try:
+                        with statement_lock(self.device):
+                            t1 = time.perf_counter()
+                            res = self._execute_stmt(s)
+                            res.elapsed_s = time.perf_counter() - t1
+                    finally:
+                        release()
+                finally:
+                    if top:
+                        self._current_stmt = None
+        except Exception as e:
             if top:
-                self._current_stmt = None
-        record_digest(getattr(s, "_source_sql", None) or type(s).__name__)
+                _C_ERRORS.inc()
+                try:
+                    # a killed statement is observed all the same: its
+                    # latency and phases are what a max_execution_time
+                    # is tuned by
+                    self._close_records(s, time.perf_counter() - t0 - waited, None, bill_t0,
+                                        observe=isinstance(e, _sk.QueryKilled))
+                except Exception:
+                    pass  # observation never masks the statement's error
+            raise
+        if top:
+            self._close_records(s, time.perf_counter() - t0 - waited, res, bill_t0)
         return res
+
+    def _open_records(self, s, parse_s: float) -> None:
+        """Open the statement's engine-watch record and flight on this
+        thread; the parse is the flight's first phase."""
+        sql = getattr(s, "_source_sql", None) or type(s).__name__
+        ENGINE_WATCH.begin_query(sql)
+        FLIGHT.begin(sql, self.conn_id)
+        if parse_s:
+            FLIGHT.note_phase("parse", parse_s)
+
+    def _close_records(self, s, elapsed_s: float, res, bill_t0, observe: bool = True) -> None:
+        """The statement's end: its observation (none for a statement
+        that raised, other than a killed one), its engine-watch record
+        into the ring, an unobserved flight dropped, and its RU bill."""
+        try:
+            if observe:
+                self._observe_stmt(s, elapsed_s, res)
+        finally:
+            ENGINE_WATCH.end_query(elapsed_s)
+            FLIGHT.discard()
+            if bill_t0 is not None:
+                try:
+                    self.catalog.resource_groups.debit(
+                        self.resource_group, max(time.perf_counter() - bill_t0, 0.0))
+                except Exception:
+                    pass  # billing never fails the statement
+
+    def _stmt_digest(self, s) -> str:
+        """The statement's digest, made once: from the tokens its parse
+        read, or (a batch's statement, a bound one with no text) from its
+        kind's name."""
+        d = getattr(s, "_digest", None)
+        if d is None:
+            toks = getattr(s, "_source_toks", None)
+            d = s._digest = (digest_tokens(toks) if toks is not None else sql_digest(
+                getattr(s, "_source_sql", None) or type(s).__name__))
+        return d
+
+    def _observe_stmt(self, s, elapsed_s: float, result=None) -> None:
+        """The counters, the flight's close into the statement summary,
+        and the slow log (the JAX session's ``_observe_stmt``): the slow
+        log takes a statement of at least ``tidb_slow_log_threshold`` ms
+        while ``slow_query_log`` is on, with its phases and, under
+        ``tidb_record_plan_in_slow_log``, its plan."""
+        _C_STATEMENTS.inc()
+        _H_LATENCY.observe(elapsed_s)
+        sql = getattr(s, "_source_sql", None) or type(s).__name__
+        FLIGHT.note_engine(ENGINE_WATCH.current())
+        if result is not None:
+            FLIGHT.note_rows_sent(len(result.rows))
+        flight = FLIGHT.finish(elapsed_s)
+        digest = self._stmt_digest(s)
+        STMT_SUMMARY.record(sql, elapsed_s, flight=flight, digest=digest)
+        # the history's windows close at statement cadence (the JAX
+        # package closes them from its time-series sampler's tick)
+        STMT_HISTORY.maybe_rotate(STMT_SUMMARY)
+        try:
+            if not bool(self.vars.get("slow_query_log")):
+                return
+            thresh_ms = int(self.vars.get("tidb_slow_log_threshold"))
+        except Exception:
+            return
+        if elapsed_s * 1000.0 < thresh_ms:  # 0 logs everything
+            return
+        phases = plan_text = ""
+        if flight is not None:
+            phases = " ".join(f"{p}={sec * 1e3:.3f}ms" for p, sec, _b, _r in flight.timeline())
+            # the switch gates every capture, EXPLAIN ANALYZE's lines too
+            if bool(self.vars.get("tidb_record_plan_in_slow_log")):
+                plan_text = flight.plan_text or self._capture_slow_plan(s)
+            flight.plan_text = plan_text
+            if plan_text:
+                c_slow_captures().inc()
+        SLOW_LOG.record(sql, elapsed_s, digest=digest, conn_id=self.conn_id, phases=phases,
+                        plan=plan_text, log_file=self._slow_log_file())
+
+    def _slow_log_file(self) -> Optional[str]:
+        """The tidb_slow_query_file sink, only where the variable was set
+        (session or global): the default path is advertised, not
+        written, so that an embedded engine writes no file of its own."""
+        sv = self.vars
+        if "tidb_slow_query_file" in sv._session or "tidb_slow_query_file" in sv._globals:
+            return str(sv.get("tidb_slow_query_file")) or None
+        return None
+
+    def _capture_slow_plan(self, s) -> str:
+        """A slow read's plan: the tree of the statement's last plan, as
+        EXPLAIN renders it."""
+        if not isinstance(s, _READS) or self._last_plan is None:
+            return ""
+        try:
+            lines: List[str] = []
+            _render_plan(self._last_plan, 0, lines, catalog=self.catalog,
+                         resolver=self._resolve_table_for_read)
+            return "\n".join(lines)
+        except Exception:
+            return ""  # plan capture never fails the statement
 
     def _execute_stmt(self, s) -> Result:
         top = self._depth == 0
@@ -620,7 +789,9 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         if self._current_stmt is None:  # KILL and SHOW PROCESSLIST
             self._current_stmt = (getattr(s, "_source_sql", type(s).__name__), time.time())
         self._stale_ok = isinstance(s, _READS)
-        inner = s.stmt if isinstance(s, ast.Explain) else s
+        inner = s
+        while isinstance(inner, (ast.Explain, ast.PlanReplayer, ast.Trace)):
+            inner = inner.stmt
         self._stmt_as_of = {}
         if isinstance(inner, _READS):
             self._stmt_as_of = self._collect_as_of(inner)
@@ -714,6 +885,18 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
                     # the storage GC horizon is engine-wide; the variable
                     # is GLOBAL-only, so the global store holds the value
                     set_gc_life(float(self.vars._globals.get("tidb_gc_life_time", 0)))
+                elif s.name.lower() == "tidb_stmt_summary_refresh_interval":
+                    # the summary history closes a window per interval
+                    try:
+                        STMT_HISTORY.refresh_interval_s = max(
+                            float(self.vars.get("tidb_stmt_summary_refresh_interval")), 0.001)
+                    except (TypeError, ValueError):
+                        pass  # a compatibility knob: only a number re-tunes
+                elif s.name.lower() == "tidb_stmt_summary_history_size":
+                    try:
+                        STMT_HISTORY.set_capacity(int(self.vars.get("tidb_stmt_summary_history_size")))
+                    except (TypeError, ValueError):
+                        pass
             return Result([], [])
         if isinstance(s, ast.CreateUser):
             self.catalog.users.create_user(s.name, s.password, s.if_not_exists)
@@ -787,6 +970,32 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             return Result([], [])
         if isinstance(s, ast.Explain):
             return self._run_explain(s)
+        if isinstance(s, ast.Trace):
+            # the inner statement runs nested: it is the TRACE's, and the
+            # TRACE is what the summary and the slow log record
+            self.tracer.enabled = True
+            self.tracer.reset()
+            try:
+                with self.tracer.span("execute"):
+                    self._execute_stmt(s.stmt)
+            finally:
+                self.tracer.enabled = False
+            return Result(["operation", "startTS", "duration"], self.tracer.rows())
+        if isinstance(s, ast.PlanReplayer):
+            return self._run_plan_replayer(s)
+        if isinstance(s, ast.ResourceGroupDDL):
+            rg = self.catalog.resource_groups
+            if s.action == "create":
+                rg.create(s.name, s.ru_per_sec, bool(s.burstable), if_not_exists=s.if_not_exists)
+            elif s.action == "alter":
+                rg.alter(s.name, s.ru_per_sec, s.burstable)
+            else:
+                rg.drop(s.name, if_exists=s.if_exists)
+            return Result([], [])
+        if isinstance(s, ast.SetResourceGroup):
+            self.catalog.resource_groups.get(s.name)  # it must exist
+            self.resource_group = s.name.lower()
+            return Result([], [])
         if isinstance(s, ast.CreateIndex):
             self._run_create_index(s)
             return Result([], [])
@@ -1152,8 +1361,7 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
     def _digest_func(self, op: str, a0):
         """TIDB_ENCODE_SQL_DIGEST(text): the sha256 of the text's
         normalized form. TIDB_DECODE_SQL_DIGESTS(json list): each digest's
-        normalized text among the statements run in this process, or
-        NULL."""
+        normalized text in the statement summary, or NULL."""
         if not isinstance(a0, ast.Const):
             raise ValueError(f"{op.upper()} supports constant arguments only")
         if a0.value is None:
@@ -1166,7 +1374,9 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             return None
         if not isinstance(digests, list):
             return None
-        by_digest = {hashlib.sha256(t.encode()).hexdigest(): t for t in seen_digests()}
+        # the summary's keys are the normalized texts; a digest is their sha256
+        by_digest = {hashlib.sha256(str(norm).encode()).hexdigest(): str(norm)
+                     for norm, _n, _s, _mx, _sample in STMT_SUMMARY.rows()}
         return json.dumps([by_digest.get(str(d)) for d in digests])
 
     # -- SHOW ----------------------------------------------------------
@@ -1326,10 +1536,12 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         if self._prepared.pop(name.lower(), None) is None:
             raise ValueError(f"unknown prepared statement {name}")
 
-    def execute_prepared(self, name: str, values) -> Result:
+    def execute_prepared(self, name: str, values, _source=None) -> Result:
         """Bind `values` to a copy of the prepared statement and run it,
         planned anew (reference: plan_cache.go; the JAX package's
-        runtime-slot fast path is not ported, ROADMAP.md)."""
+        runtime-slot fast path is not ported, ROADMAP.md). `_source`:
+        the EXECUTE statement that asked, with its parse and start, whose
+        text the bound statement is recorded under."""
         ent = self._prepared.get(name.lower())
         if ent is None:
             raise ValueError(f"unknown prepared statement {name}")
@@ -1345,14 +1557,19 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
             return self.execute(bind_placeholders(ent["textual"], values))
         s = copy.deepcopy(ent["ast"])
         _bind_ast_params(s, values)
-        return self._run_top(s)
+        if _source is None:
+            return self._run_top(s)
+        src, parse_s, t_start = _source
+        for attr in ("_source_sql", "_source_toks"):
+            if hasattr(src, attr):
+                setattr(s, attr, getattr(src, attr))
+        return self._run_top(s, parse_s, t_start)
 
     # -- bindings ------------------------------------------------------
     def _run_binding(self, s: ast.CreateBinding) -> Result:
         """CREATE / DROP BINDING: a plain SELECT's digest -> the hints of
-        the USING statement (reference: pkg/bindinfo). The JAX package
-        also counts binding hits in its metrics registry; the port has no
-        registry yet."""
+        the USING statement (reference: pkg/bindinfo). A statement a
+        binding matches counts in ``tidbtpu_session_binding_hits_total``."""
         digest = sql_digest(s.for_sql)
         if s.drop:
             self.catalog.bindings.pop(digest, None)
@@ -1373,9 +1590,11 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         src = getattr(s, "_source_sql", None)
         if not src or not self.catalog.bindings or not isinstance(s, ast.Select):
             return s
-        entry = self.catalog.bindings.get(sql_digest(src))
+        entry = self.catalog.bindings.get(self._stmt_digest(s))
         if entry is not None:
             s.hints = tuple(entry["hints"]) or s.hints
+            REGISTRY.counter("tidbtpu_session_binding_hits_total",
+                             "statements matched to bindings").inc()
         return s
 
     # -- SELECT --------------------------------------------------------
@@ -1400,15 +1619,39 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
                     self.killer.deadline = time.monotonic() + int(args[0]) / 1000
                 except ValueError:
                     pass
+        # the spans and phases of the JAX session's _run_select. A read
+        # nested in this one's plan (a scalar subquery) charges no phase
+        # of its own, and the plan builds inside a wall are the compile
+        # phase's, not its: the phases stay additive
+        phased = self._reads_open == 0
+        self._reads_open += 1
         try:
-            plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
+            t_plan = time.perf_counter()
+            c0 = FLIGHT.phase_seconds("compile")
+            with self.tracer.span("session.plan"):
+                plan = build_query(s, self.catalog, self.db, self._scalar_subquery, ctes)
+            t_exec = time.perf_counter()
+            c1 = FLIGHT.phase_seconds("compile")
+            self._last_plan = plan
             names = [c.name for c in plan.schema]
-            rows = self._try_host_sorted(plan)
-            if rows is None:
-                batch, dicts = self.executor.run(plan)
-                rows = materialize_rows(batch, list(plan.schema), dicts)
+            batch = None
+            with self.tracer.span("executor.run"):
+                rows = self._try_host_sorted(plan)
+                if rows is None:
+                    batch, dicts = self.executor.run(plan)
+            t_mat = time.perf_counter()
+            if batch is not None:
+                with self.tracer.span("session.materialize"):
+                    rows = materialize_rows(batch, list(plan.schema), dicts)
+            if phased:
+                c2 = FLIGHT.phase_seconds("compile")
+                FLIGHT.note_phase("plan", t_exec - t_plan - (c1 - c0))
+                FLIGHT.note_phase("execute", t_mat - t_exec - (c2 - c1))
+                if batch is not None:
+                    FLIGHT.note_phase("final-merge", time.perf_counter() - t_mat)
             return Result(names, rows, types=[c.type for c in plan.schema])
         finally:
+            self._reads_open -= 1
             self.executor.stream_rows = old_stream
 
     # -- EXPLAIN -------------------------------------------------------
@@ -1425,12 +1668,28 @@ class Session(DDLMixin, ConstraintMixin, AdminMixin):
         plan = build_query(s.stmt, self.catalog, self.db, self._scalar_subquery)
         if s.analyze:
             _out, _dicts, lines = self.executor.run_analyze(plan)
+            # the instrumented lines are the slow log's plan capture
+            FLIGHT.note_plan_text("\n".join(lines))
             return Result(["plan"], [(line,) for line in lines])
         est_rows(plan, self.catalog)  # annotates .est on every node
         lines: List[str] = []
         # pruned with the versions the run would read (pins, stale reads)
         _render_plan(plan, 0, lines, self.catalog, resolver=self._resolve_table_for_read)
         return Result(["plan"], [(line,) for line in lines])
+
+    def _run_plan_replayer(self, s: ast.PlanReplayer) -> Result:
+        """PLAN REPLAYER DUMP EXPLAIN <stmt>: a zip of the schema DDL,
+        statistics, variables, bindings, the SQL and its EXPLAIN
+        (utils/planreplayer.py); returns the zip's path."""
+        from tidb_tpu_torch.utils.planreplayer import dump_plan_replayer
+
+        explain = self._run_explain(ast.Explain(s.stmt))
+        tables: list = []
+        for ref in ast.iter_table_refs(s.stmt):
+            key = ((ref.db or self.db).lower(), ref.name.lower())
+            if key not in tables and self.catalog.has_table(*key):
+                tables.append(key)
+        return Result(["File"], [(dump_plan_replayer(self, s.sql_text, tables, explain.rows),)])
 
     # -- recursive CTEs ------------------------------------------------
     # Iterative materialization (reference: CTEExec's seed and recursive

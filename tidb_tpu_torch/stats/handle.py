@@ -10,7 +10,8 @@ reference's stats owner loop): each tick sweeps the catalog with the
 same rule, honouring the global ``tidb_enable_auto_analyze`` and
 ``tidb_auto_analyze_ratio``. Its ANALYZE runs on the card from the
 worker's thread, so each one holds the device's statement lock: the port
-runs one statement's device work at a time per device.
+runs one statement's device work at a time per device. Each automatic
+ANALYZE counts in ``tidbtpu_stats_auto_analyze_total``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional
 from tidb_tpu_torch.chunk import resolve_device
 from tidb_tpu_torch.stats.collect import analyze_table
 from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.metrics import REGISTRY
 
 _log = logging.getLogger(__name__)
 
@@ -47,6 +49,7 @@ def maybe_auto_analyze(table, ratio: float = 0.5, device=None) -> bool:
     if not needs_analyze(table, ratio):
         return False
     analyze_table(table, device=device)
+    REGISTRY.counter("tidbtpu_stats_auto_analyze_total", "auto-analyze runs").inc()
     return True
 
 

@@ -24,15 +24,21 @@ information_schema: ``tables``, ``columns``, ``schemata``,
 ``part_id``) are built from the catalog as the JAX package builds them,
 memoized per schema version and data fingerprint (a fresh table per
 statement would carry a fresh uid, and the executor would recompile its
-plan and re-copy its columns every time). ``memory_usage`` and
-``memory_usage_ops_history``, the instance watchdog's surface
-(utils/watchdog.py), are built anew at every read. The other diagnostic
-tables refuse by name.
+plan and re-copy its columns every time). The tables of the moment are
+built anew at every read: ``memory_usage`` and
+``memory_usage_ops_history`` (the instance watchdog, utils/watchdog.py),
+``slow_query``, ``statements_summary`` and its ``_history`` and
+``metrics`` (utils/metrics.py), ``tpu_engine`` (obs/engine_watch.py: the
+name is the JAX package's, the rows the CUDA engine's) and
+``resource_groups`` (``resource_groups``, utils/resgroup.py, shared by
+every session over the catalog). ``top_sql``, ``inspection_result``,
+``cluster_links`` and metrics_schema refuse by name.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 import weakref
 from typing import Dict, List
 
@@ -42,6 +48,7 @@ from tidb_tpu_torch.storage.table import Table, TableSchema
 from tidb_tpu_torch.utils import racecheck
 from tidb_tpu_torch.utils.failpoint import inject
 from tidb_tpu_torch.utils.privilege import UserStore
+from tidb_tpu_torch.utils.resgroup import ResourceGroupManager
 
 
 class Catalog:
@@ -76,12 +83,16 @@ class Catalog:
         # bumped by every DDL: the information_schema memo's key
         self.schema_version = 0
         self._is_table_cache: Dict[str, tuple] = {}
+        # per thread: the tables of the moment its statement built
+        self._live_tls = threading.local()
         # SQL bindings: statement digest -> {"for_sql", "using_sql", "hints"}
         self.bindings: Dict[str, dict] = {}
         # advisory locks (GET_LOCK): name -> [holder conn_id, depth],
         # waited for on the condition
         self._user_locks: Dict[str, list] = {}
         self._user_locks_cv = racecheck.make_condition("session.user_locks")
+        # resource groups and their RU buckets (CREATE RESOURCE GROUP)
+        self.resource_groups = ResourceGroupManager()
 
     def create_database(self, name: str, if_not_exists: bool = False) -> None:
         name = name.lower()
@@ -329,13 +340,38 @@ class Catalog:
         if name not in _IS_BUILT:
             raise ValueError(f"unknown table information_schema.{name}")
         if name in _IS_LIVE:
-            return self._build_infoschema_table(name)
+            return self._live_infoschema_table(name)
         state = (self.schema_version, self._data_fingerprint())
         hit = self._is_table_cache.get(name)
         if hit is not None and hit[0] == state:
             return hit[1]
         t = self._build_infoschema_table(name)
         self._is_table_cache[name] = (state, t)
+        return t
+
+    def _live_infoschema_table(self, name: str) -> Table:
+        """A table of the moment, built once per statement on this
+        thread: the plan, its cache key and the scan all read one build
+        (a metric registered or a statement recorded between two builds
+        would shift a dictionary's codes). The build of the thread's
+        previous statement leaves the device's scan cache, so that reads
+        of diagnostic tables never push the tables' columns out. Outside
+        a statement every call builds anew."""
+        from tidb_tpu_torch.obs.engine_watch import ENGINE_WATCH
+        from tidb_tpu_torch.storage import scan
+
+        stmt = ENGINE_WATCH.current()
+        memo = getattr(self._live_tls, "tables", None)
+        if memo is None:
+            memo = self._live_tls.tables = {}
+        hit = memo.get(name)
+        if hit is not None and stmt is not None and hit[0] is stmt:
+            return hit[1]
+        t = self._build_infoschema_table(name)
+        if stmt is not None:
+            if hit is not None:
+                scan.release(hit[1])
+            memo[name] = (stmt, t)
         return t
 
     def _data_fingerprint(self) -> tuple:
@@ -493,6 +529,8 @@ class Catalog:
                          for r in wd.alarm_records]
                 rows += [(r["time"], "kill", r["conn_id"], r["rss"], r["limit"], r["sql"])
                          for r in wd.kill_records]
+        elif name in _DIAGNOSTIC:
+            schema, rows = _diagnostic_table(self, name)
         else:  # schemata
             schema = TableSchema([("schema_name", STRING)])
             with self._lock:
@@ -525,18 +563,95 @@ def _partition_description(t, i: int):
     return "MAXVALUE" if spec[i][1] is None else fmt(spec[i][1])
 
 
+#: statements_summary's mean phase columns: (column, flight phase)
+_PHASE_COLS = (
+    ("avg_parse", "parse"), ("avg_plan", "plan"), ("avg_compile", "compile"),
+    ("avg_execute", "execute"), ("avg_final_merge", "final-merge"),
+    ("avg_dispatch", "fragment-dispatch"), ("avg_shuffle_produce", "shuffle-produce"),
+    ("avg_shuffle_push", "shuffle-push"), ("avg_shuffle_wait", "shuffle-wait"),
+    ("avg_shuffle_stage", "shuffle-stage"),
+)
+
+_SUMMARY_HEAD = [("digest_text", STRING), ("exec_count", INT64), ("sum_latency", FLOAT64),
+                 ("max_latency", FLOAT64), ("p50_latency", FLOAT64), ("p95_latency", FLOAT64),
+                 ("p99_latency", FLOAT64), ("plan_digest", STRING)]
+
+
+def _diagnostic_table(catalog, name: str):
+    """(schema, rows) of a diagnostic table, as the JAX catalog renders
+    it (catalog.py:589-790)."""
+    from tidb_tpu_torch.obs.engine_watch import ENGINE_WATCH
+    from tidb_tpu_torch.utils.metrics import REGISTRY, SLOW_LOG, STMT_HISTORY, STMT_SUMMARY
+
+    if name == "slow_query":
+        return TableSchema([("time", FLOAT64), ("query", STRING), ("query_time", FLOAT64),
+                            ("digest", STRING), ("conn_id", INT64), ("phases", STRING),
+                            ("plan", STRING)]), SLOW_LOG.rows()
+    if name == "statements_summary":
+        schema = TableSchema(
+            _SUMMARY_HEAD + [(cn, FLOAT64) for cn, _p in _PHASE_COLS]
+            + [("shuffle_bytes", INT64), ("shuffle_retries", INT64), ("dispatch_retries", INT64),
+               ("rows_sent", INT64), ("plan_cache_hits", INT64), ("plan_cache_misses", INT64),
+               ("jit_compilations", INT64), ("retraces", INT64), ("h2d_bytes", INT64),
+               ("d2h_bytes", INT64), ("device_mem_peak_bytes", INT64),
+               ("compile_flops", FLOAT64), ("compile_bytes_accessed", FLOAT64),
+               ("compile_output_bytes", FLOAT64), ("est_rows", FLOAT64), ("act_rows", FLOAT64),
+               ("card_divergence", FLOAT64), ("sample_text", STRING)])
+        rows = []
+        for e in STMT_SUMMARY.rows_full():
+            n = max(e["exec_count"], 1)
+            ph = e["phases"]
+            none = (0.0, 0, 0)
+            rows.append(
+                tuple(e[k] for k, _t in _SUMMARY_HEAD)
+                + tuple(ph.get(p, none)[0] / n for _cn, p in _PHASE_COLS)
+                + (ph.get("shuffle-push", none)[1], ph.get("shuffle-push", none)[2],
+                   ph.get("fragment-dispatch", none)[2])
+                + tuple(e[k] for k in (
+                    "rows_sent", "plan_cache_hits", "plan_cache_misses", "jit_compilations",
+                    "retraces", "h2d_bytes", "d2h_bytes", "device_mem_peak_bytes",
+                    "compile_flops", "compile_bytes_accessed", "compile_output_bytes",
+                    "est_rows", "act_rows", "card_divergence", "sample_text")))
+        return schema, rows
+    if name == "statements_summary_history":
+        schema = TableSchema(
+            [("summary_begin_time", FLOAT64), ("summary_end_time", FLOAT64)] + _SUMMARY_HEAD
+            + [("rows_sent", INT64), ("device_mem_peak_bytes", INT64), ("est_rows", FLOAT64),
+               ("act_rows", FLOAT64), ("card_divergence", FLOAT64), ("sample_text", STRING)])
+        keys = [k for k, _t in schema.columns[2:]]
+        return schema, [(b, e) + tuple(r.get(k, 0.0) for k in keys)
+                        for b, e, r in STMT_HISTORY.rows()]
+    if name == "metrics":
+        return TableSchema([("name", STRING), ("kind", STRING), ("value", FLOAT64)]), \
+            REGISTRY.rows()
+    if name == "tpu_engine":
+        return TableSchema([("qid", INT64), ("query", STRING), ("jit_compilations", INT64),
+                            ("retraces", INT64), ("h2d_bytes", INT64), ("d2h_bytes", INT64),
+                            ("device_mem_peak_bytes", INT64), ("duration", FLOAT64),
+                            ("compile_flops", FLOAT64), ("compile_bytes_accessed", FLOAT64),
+                            ("compile_output_bytes", FLOAT64)]), ENGINE_WATCH.rows()
+    # resource_groups
+    return TableSchema([("name", STRING), ("ru_per_sec", INT64), ("burstable", STRING),
+                        ("consumed_ru", FLOAT64), ("queries", INT64)]), \
+        catalog.resource_groups.rows()
+
+
+#: the diagnostic tables (``_diagnostic_table``)
+_DIAGNOSTIC = ("slow_query", "statements_summary", "statements_summary_history", "metrics",
+               "tpu_engine", "resource_groups")
+
 _IS_BUILT = ("tables", "columns", "schemata", "statistics", "table_constraints",
              "key_column_usage", "referential_constraints", "views", "sequences",
-             "partitions", "memory_usage", "memory_usage_ops_history")
+             "partitions", "memory_usage", "memory_usage_ops_history") + _DIAGNOSTIC
 
 #: information_schema tables of the moment: never memoized
-_IS_LIVE = ("memory_usage", "memory_usage_ops_history")
+_IS_LIVE = ("memory_usage", "memory_usage_ops_history") + _DIAGNOSTIC
 
 #: information_schema tables the port refuses, with the feature they wait for
 IS_UNPORTED = {
-    **{n: "a diagnostic table: observability is not ported" for n in (
-        "slow_query", "statements_summary", "statements_summary_history", "metrics",
-        "top_sql", "tpu_engine", "cluster_links", "inspection_result", "resource_groups")},
+    **{n: "a diagnostic table of the time-series tier, not ported yet" for n in (
+        "top_sql", "inspection_result")},
+    "cluster_links": "the multi-host tier's link health, not ported yet",
 }
 
 
@@ -544,7 +659,7 @@ def unported_virtual_table(db: str, name: str):
     """Why a read of the virtual table `db`.`name` is refused, or None."""
     db, name = db.lower(), name.lower()
     if db == "metrics_schema":
-        return f"metrics_schema.{name} is not ported yet (observability)"
+        return f"metrics_schema.{name} is not ported yet (the time-series tier)"
     if db == "information_schema" and name in IS_UNPORTED:
         return f"information_schema.{name} is not ported yet ({IS_UNPORTED[name]})"
     return None

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tidb_tpu_torch.chunk import TRANSFERS, Batch, DevCol, pad_capacity, resolve_device
+from tidb_tpu_torch.chunk import Batch, DevCol, count_h2d, pad_capacity, resolve_device
 from tidb_tpu_torch.storage.table import Table
 from tidb_tpu_torch.utils.failpoint import inject
 
@@ -77,7 +77,7 @@ def _column(table: Table, v: int, name: str, cap: int, device, partitions=None) 
         if c is not None:  # a block without the column reads as NULL
             for dst, src in ((data, c.data), (valid, c.valid)):
                 dst[off: off + b.nrows].copy_(torch.from_numpy(np.ascontiguousarray(src)))
-                TRANSFERS["h2d_bytes"] += src.nbytes
+                count_h2d(src.nbytes)
         off += b.nrows
     return DevCol(data, valid)
 

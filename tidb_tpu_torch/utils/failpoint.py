@@ -12,7 +12,7 @@ check_failpoints.py) holds every literal site a test or the port arms
 against the JAX registry. The ``ddl/index-*`` and ``ddl/modify-column-*``
 ladders are left out on purpose (the port's online DDL runs no such
 ladder), and so are the sites of modules not ported yet (the MPP tier,
-the delta tier, CDC, log backup, resource groups and the serving tier).
+the delta tier, CDC, log backup and the serving tier).
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ SITES = frozenset({
     "persist/backup-table",
     "persist/before-manifest",
     "persist/restore-start",
+    "resgroup/debit",
     "sequence/nextval",
     "server/dispatch-query",
     "session/before-commit",

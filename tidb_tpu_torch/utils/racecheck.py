@@ -63,7 +63,16 @@ LOCK_CLASSES: Dict[str, str] = {
     # server tier
     "server.conns": "MySQL server connection counter/ids",
     # observability tier
-    "metrics.seen_texts": "the texts of the statements run (digests)",
+    "metrics.registry": "the metric name -> collector map",
+    "metrics.family": "one labeled family's children map",
+    "metrics.metric": "one counter/gauge/histogram's value cells",
+    "metrics.slowlog": "slow-query ring buffer",
+    "metrics.slowlog_file": "slow-query file sink appends",
+    "metrics.stmt_summary": "per-digest statement aggregates",
+    "metrics.stmt_history": "closed statements_summary windows + pending evictions",
+    "engine_watch": "finished engine-watch records ring",
+    "flight.ring": "finished query-flight ring",
+    "resgroup": "resource-group definitions",
     # utils
     "failpoint.registry": "armed failpoint actions",
     "failpoint.site": "one after_n() site's invocation counter",

@@ -11,8 +11,9 @@ Where the JAX package clears the whole scan cache after a purge, the port
 drops only the purged table's cached columns (``scan.invalidate``): the
 cache keys by version, and a global clear would copy every other table's
 columns to the card again. It does so under the device's statement lock,
-since statements read the cache. The ``tidbtpu_ttl_*`` counters wait for
-the port's metrics registry.
+since statements read the cache. Purged rows count in
+``tidbtpu_ttl_expired_rows_total``, failed sweeps of a table in
+``tidbtpu_ttl_errors_total``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from tidb_tpu_torch.chunk import resolve_device
 from tidb_tpu_torch.dtypes import US_PER_SECOND, Kind
 from tidb_tpu_torch.storage import scan as _scan
 from tidb_tpu_torch.utils import racecheck
+from tidb_tpu_torch.utils.metrics import REGISTRY
 
 _log = logging.getLogger(__name__)
 
@@ -63,6 +65,7 @@ def expire_table(table, now_unix: Optional[float] = None, device=None) -> int:
 
         with statement_lock(resolve_device(device)):
             _scan.invalidate(table)
+        REGISTRY.counter("tidbtpu_ttl_expired_rows_total", "rows purged by TTL").inc(removed)
     return removed
 
 
@@ -95,6 +98,7 @@ class TTLWorker:
                 except Exception:
                     # one table's failure must not end the sweep or the loop
                     _log.exception("TTL expiry of %s.%s failed", db, name)
+                    REGISTRY.counter("tidbtpu_ttl_errors_total", "failed TTL sweeps").inc()
         return n
 
     def start(self) -> None:

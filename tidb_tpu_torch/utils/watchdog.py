@@ -15,12 +15,10 @@ the running statement whose session admitted the largest working set
 for each launch), then the longest-running one. ``tidb_server_memory_limit``
 is enforced at its default of 80% of the host's memory, as the JAX
 package enforces it. The alarm and kill records surface through
-information_schema.memory_usage and memory_usage_ops_history.
-
-The JAX package's three ``tidbtpu_watchdog_*`` counters and the
-expensive-query entry in the slow log wait for the metrics registry and
-the slow log (ROADMAP.md, observability); the port keeps the flagged
-statements in ``expensive_seen``.
+information_schema.memory_usage and memory_usage_ops_history; each
+action counts in its ``tidbtpu_watchdog_*`` counter, and an expensive
+statement gets an ``[expensive_query]`` entry in the slow log while
+``slow_query_log`` is on (flagged once, in ``expensive_seen``).
 """
 
 from __future__ import annotations
@@ -28,6 +26,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import List, Optional
+
+from tidb_tpu_torch.utils.metrics import REGISTRY, SLOW_LOG
 
 
 def host_memory() -> tuple:
@@ -132,8 +132,19 @@ class InstanceWatchdog(threading.Thread):
             cur = s._current_stmt
             if cur is None:
                 continue
-            if now - cur[1] >= thr:
-                self.expensive_seen.add((s.conn_id, cur[1]))
+            elapsed = now - cur[1]
+            key = (s.conn_id, cur[1])
+            if elapsed >= thr and key not in self.expensive_seen:
+                self.expensive_seen.add(key)
+                REGISTRY.counter("tidbtpu_watchdog_expensive_queries_total",
+                                 "statements running past the expensive threshold").inc()
+                # the entry rides the slow log and honors its switch; its
+                # bar is its own threshold (the statement still runs)
+                if bool(self._gvar("slow_query_log", True)):
+                    SLOW_LOG.record(
+                        f"[expensive_query] conn={s.conn_id} "
+                        f"elapsed={elapsed:.1f}s sql={str(cur[0])[:200]}",
+                        elapsed, conn_id=s.conn_id)
         if len(self.expensive_seen) > 4096:
             self.expensive_seen.clear()
 
@@ -144,6 +155,8 @@ class InstanceWatchdog(threading.Thread):
             self.alarm_records.append(
                 {"time": now, "rss": rss, "total": total, "ratio": ratio})
             del self.alarm_records[:-max(keep, 1)]
+            REGISTRY.counter("tidbtpu_watchdog_memory_usage_alarms_total",
+                             "instance memory passed the alarm ratio").inc()
 
         # ---- server memory limit (servermemorylimit.go:51) ------------
         limit = parse_mem_limit(self._gvar("tidb_server_memory_limit", "0"), total)
@@ -160,6 +173,8 @@ class InstanceWatchdog(threading.Thread):
                     "working_set": getattr(victim.executor, "last_working_set", 0),
                 })
                 del self.kill_records[:-64]
+                REGISTRY.counter("tidbtpu_watchdog_server_memory_limit_kills_total",
+                                 "statements killed at the instance memory limit").inc()
 
     def top_consumer(self) -> Optional[object]:
         """The session of a running statement with the largest admitted
